@@ -3,7 +3,7 @@
 // The reference ingests samples on a dedicated OS thread (librtlsdr's
 // readAsync callback) and hands fixed-size blocks to the pipeline through
 // an STM mailbox (hs_sources/SDR/RTLSDRStream.hs:71-87).  This is the
-// TPU-host equivalent: a producer thread (file reader with optional loop,
+// accelerator-host equivalent: a producer thread (file reader with optional loop,
 // or UDP receiver) fills pre-allocated page-aligned block buffers in a
 // bounded ring; the Python driver pops filled blocks, hands the memory to
 // jax.device_put, and releases the slot.  Bounded ring => backpressure

@@ -1,13 +1,12 @@
-"""sdr_tpu — a TPU-native software-defined-radio signal-processing framework.
+"""sdr_tpu — a software-defined-radio signal-processing framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
-adamwalker/sdr (a Haskell + SIMD-C streaming DSP library; see
-/root/reference).  The reference composes pull-based pipes of mutable
+adamwalker/sdr (a Haskell + SIMD-C streaming DSP library).  The reference composes pull-based pipes of mutable
 sample-block buffers with hand written SSE/AVX inner loops; sdr_tpu instead
 expresses every operator as a pure block transform ``(carry, block) ->
 (carry', out)`` over statically-shaped arrays, jitted and fused by XLA, with
-the hot FIR/polyphase inner loops implemented as XLA convs and as Pallas
-TPU kernels, and with streams scaled across device
+the hot FIR/polyphase inner loops implemented as XLA convolutions and the
+full-rate FM front as one Pallas GPU kernel, and with streams scaled across device
 meshes via shard_map + halo exchange instead of cross-buffer functions.
 
 Public API surface (mirrors the reference's module layout — reference
@@ -17,7 +16,7 @@ files cited per module):
   conversion, scaling, frequency shift, FM/AM demod, AGC, DC blocker, FFT,
   filter design. (ref: SDR/Filter.hs, SDR/FilterInternal.hs, SDR/Util.hs,
   SDR/Demod.hs, SDR/FFT.hs, SDR/FilterDesign.hs, c_sources/*.c)
-- :mod:`sdr_tpu.kernels`  — Pallas TPU kernels (ref: c_sources/*.c)
+- :mod:`sdr_tpu.kernels`  — Pallas GPU kernels, Triton route (ref: c_sources/*.c)
 - :mod:`sdr_tpu.stream`   — streaming runtime: stateful block operators,
   pipelines, rate metering (ref: pipes usage, SDR/PipeUtils.hs)
 - :mod:`sdr_tpu.parallel` — mesh sharding, halo exchange, channelizer

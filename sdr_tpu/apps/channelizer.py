@@ -20,7 +20,7 @@ import jax
 from sdr_tpu.apps.chains import channelizer_chain
 from sdr_tpu import parallel
 from sdr_tpu.io import wav_sink
-from sdr_tpu.utils import parse_size, from_host, to_host
+from sdr_tpu.utils import parse_size
 
 
 def synthesize(n_channels: int, n: int, fs: float, seed: int = 0):
@@ -82,15 +82,15 @@ def main(argv=None):
         while (len(x) // args.channels) % (n_t * 80) or len(x) % n_t:
             n_t -= 1
         mesh = parallel.make_mesh((n_t,), ("t",))
-        y = parallel.run_time_sharded(chain, mesh, from_host(x))
+        y = parallel.run_time_sharded(chain, mesh, jax.device_put(x))
         n_c = n_t
     else:
         n_c = min(n_dev, args.channels)
         while args.channels % n_c:
             n_c -= 1
         mesh = parallel.make_mesh((n_c,), ("c",))
-        y = parallel.run_channel_sharded(chain, mesh, from_host(x))
-    y = to_host(jax.block_until_ready(y))
+        y = parallel.run_channel_sharded(chain, mesh, jax.device_put(x))
+    y = np.asarray(y)
     audio_rate = args.rate // 8 * 3 // 10
     print(f"demodulated {y.shape[0]} channels x {y.shape[1]} samples "
           f"at {audio_rate} Hz on {n_c} devices")

@@ -53,12 +53,14 @@ def main(argv=None):
                     help="u8 items per block (must keep chain rates integral)")
     ap.add_argument("--volume", type=float, default=0.2)
     ap.add_argument("--method", default="auto",
-                    choices=["auto", "direct", "conv", "pallas"])
-    ap.add_argument("--front", default="auto",
-                    choices=["auto", "exact", "quantized"],
-                    help="front end: exact f32 stages or the fused "
-                         "int8-MXU convert+decimate (auto: quantized "
-                         "on TPU)")
+                    choices=["auto", "direct", "conv"])
+    ap.add_argument("--front", default="fused",
+                    choices=["fused", "exact", "quantized"],
+                    help="front end: 'fused' convert+decimate+demod with "
+                         "f32 taps (one kernel on the GPU, plain XLA "
+                         "stages on the CPU); 'exact' separate f32 "
+                         "stages; 'quantized' integer-matmul "
+                         "convert+decimate")
     ap.add_argument("--batched", type=int, default=0, metavar="B",
                     help="process B blocks block-parallel per dispatch "
                          "(offline-throughput path; 0 = stream "

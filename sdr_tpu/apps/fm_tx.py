@@ -21,7 +21,7 @@ import jax.numpy as jnp
 
 from sdr_tpu.ops import cfloat_to_iq_i16, design
 from sdr_tpu.stream import Fir, FmMod, Pipeline
-from sdr_tpu.utils import parse_size, to_host
+from sdr_tpu.utils import parse_size
 
 
 def main(argv=None):
@@ -62,7 +62,7 @@ def main(argv=None):
         print("input shorter than one block", file=sys.stderr)
         return 1
     _, iq = pipe.process(audio[:n])
-    raw = np.asarray(cfloat_to_iq_i16(jnp.asarray(to_host(iq))))
+    raw = np.asarray(cfloat_to_iq_i16(iq))
     raw.tofile(args.out)
     print(f"wrote {len(raw) // 2} IQ samples at {audio_rate * 80 // 3} Hz "
           f"to {args.out}")

@@ -4,7 +4,7 @@ The reference plays demodulated audio in real time on a dedicated OS
 thread behind a bounded-1 mailbox so pulse writes never stall the DSP
 chain (hs_sources/SDR/Pulse.hs:18-33; 48 kHz mono F32).  Here the same
 shape: a writer thread + bounded queue over the optional ``sounddevice``
-package (PortAudio).  On a headless TPU host the package is usually
+package (PortAudio).  On a headless accelerator host the package is usually
 absent — ``audio_available()`` gates it, and ``wav_sink`` (io/files.py)
 is the recorded stand-in.
 """

@@ -2,10 +2,10 @@
 
 The reference streams vectors to/from Handles with cast-based zero-copy
 serialization (SDR/Serialize.hs:70-83) and ingests live radios via an async
-callback thread (SDR/RTLSDRStream.hs).  On a TPU host the equivalents are:
+callback thread (SDR/RTLSDRStream.hs).  On an accelerator host the equivalents are:
 memory-mapped block readers feeding ``jax.device_put`` (recorded IQ files in
 the common SDR raw formats) and block writers, plus a WAV sink standing in
-for the PulseAudio consumer (SDR/Pulse.hs — no audio device on a TPU host).
+for the PulseAudio consumer (SDR/Pulse.hs — no audio device on the host).
 """
 
 from __future__ import annotations

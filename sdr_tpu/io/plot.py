@@ -2,7 +2,7 @@
 
 Reference: hs_sources/SDR/Plot.hs — OpenGL consumers ``plotLine`` (38-69),
 ``plotFill(Axes)`` (104-131), ``plotWaterfall`` (72-78) with Cairo axes
-(134-171).  TPU hosts are headless, so these render PNGs (single-shot or
+(134-171).  Accelerator hosts are headless, so these render PNGs (single-shot or
 rolling) with matplotlib; the waterfall keeps a scrolling row buffer like
 the reference's texture ring.
 """

@@ -4,7 +4,7 @@ The reference's flagship entry point is a live radio: ``sdrStream`` opens
 an RTL2832U device, applies ``RTLSDRParams`` (center frequency, sample
 rate, frequency correction, optional manual tuner gain) and streams u8 IQ
 blocks from an async reader thread through a mailbox
-(hs_sources/SDR/RTLSDRStream.hs:27-87).  A TPU host has no USB radio;
+(hs_sources/SDR/RTLSDRStream.hs:27-87).  An accelerator host has no USB radio;
 the standard network front end for an RTL-SDR is the ``rtl_tcp`` server
 (shipped with librtlsdr), which speaks a tiny public protocol:
 

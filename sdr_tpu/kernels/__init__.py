@@ -1,4 +1,4 @@
-"""Pallas TPU kernels (the reference's c_sources/ layer, TPU-native)."""
+"""Hand-written GPU kernels (Pallas, Triton route) where a measurement
+on the card pays for them (the reference's c_sources/ layer)."""
 
-from sdr_tpu.kernels.fir_pallas import fir_strided  # noqa: F401
-from sdr_tpu.kernels.u8_front_pallas import u8_front_pallas  # noqa: F401
+from sdr_tpu.kernels.u8_front_demod_triton import u8_front_demod  # noqa: F401

@@ -1,4 +1,4 @@
-"""DSP operator layer (the L2/L1/L0 math of the reference, TPU-native)."""
+"""DSP operator layer (the L2/L1/L0 math of the reference)."""
 
 from sdr_tpu.ops.convert import (  # noqa: F401
     iq_u8_to_cfloat,
@@ -29,8 +29,6 @@ from sdr_tpu.ops.demod import (fm_demod, fm_demod_planar,  # noqa: F401
 from sdr_tpu.ops.scans import dc_blocker, agc, linear_scan  # noqa: F401
 from sdr_tpu.ops.fftops import (  # noqa: F401
     fft,
-    fft_mxu,
-    fft_mxu_planar,
     rfft,
     frame,
     spectrogram,

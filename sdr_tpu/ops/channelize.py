@@ -4,7 +4,7 @@ Extracts C equally-spaced channels from one wideband complex stream at
 1/C-th the rate each — the standard SDR analysis filterbank, and the
 wideband front end for BASELINE config #5's 64-channel FM bank.  (The
 reference runs independent per-channel chains and has no wideband
-channelizer; this is the TPU-native generalization: the C mixer+decimator
+channelizer; this is the batched generalization: the C mixer+decimator
 chains collapse into one batched branch-FIR plus one FFT across branches.)
 
 Derivation (correlation orientation matching the rest of the framework):
@@ -15,7 +15,7 @@ channel c is "mix down by c/C, low-pass, decimate by C":
     v[r, m] = sum_p h[pC + r] * x[(m + p)C + r]
 
 i.e. polyphase-split x into C branches, filter branch r with taps
-``h[r::C]``, then an FFT across the branch axis.  One MXU-friendly batched
+``h[r::C]``, then an FFT across the branch axis.  One batched
 FIR + one batched FFT replace C mixer/filter chains — C times less work
 than the direct form.
 """
@@ -52,23 +52,17 @@ def polyphase_channelize(taps, n_channels: int, x,
 
     ``method``:
 
-    * ``'stencil'`` (the TPU path, 'auto' everywhere) — gather-free.
+    * ``'stencil'`` ('auto' everywhere) — gather-free.
       The branch-filter sum ``v[m, r] = sum_p h[pC+r] * x[(m+p)C + r]``
       reads the FREE row-major reshape ``x2[..., m, r] = x[..., mC+r]``
       as P shifted views weighted by the tap rows: a P-term fused
-      elementwise stencil (one HBM pass post-fusion), with the branch
-      axis landing in the LANES.  The C-point branch DFT then runs along
-      that contiguous last axis (the MXU matmul DFT when C factors), and
+      elementwise stencil (one device-memory pass post-fusion), with the
+      branch axis contiguous.  The C-point branch DFT then runs along
+      that last axis, and
       one output-side transpose produces the [..., C, M] channel layout.
     * ``'gather'`` — the old [..., C, num, P] window-gather + einsum
-      form.  TPU gathers materialize P copies of the stream through HBM
-      (DESIGN §2); kept as the differential oracle / tiny-input path.
-
-    Measured r5 at the 64-channel, 12-taps-per-branch production shape
-    (bench_kernels.json ``channelize_c64_p12_*``, same device window):
-    stencil 7.09 GS/s vs gather 0.88 GS/s — 8.0x, so 'auto' is
-    unconditionally the stencil (no crossover was found at any tested
-    C; the gather path exists for differential testing only).
+      form: the gather materializes P copies of the stream; kept as the
+      differential oracle / tiny-input path.
     """
     C = int(n_channels)
     taps = np.asarray(taps, dtype=np.float32)

@@ -1,8 +1,8 @@
 """Sample-format conversion and scaling.
 
-TPU-native equivalents of c_sources/convert.c and c_sources/scale.c and
-their wrappers in hs_sources/SDR/Util.hs:91-255.  On TPU these are pure
-elementwise VPU ops that XLA fuses into neighbors; there is no reason for a
+Equivalents of c_sources/convert.c and c_sources/scale.c and
+their wrappers in hs_sources/SDR/Util.hs:91-255.  These are pure
+elementwise ops that XLA fuses into neighbors; there is no reason for a
 hand kernel (the reference needed SSE/AVX because scalar C was the
 bottleneck; here the op disappears into the surrounding fusion).
 
@@ -33,11 +33,9 @@ def iq_u8_to_cfloat(x):
     Reference: ``interleavedIQUnsigned256ToFloat`` (Util.hs:91-98) /
     ``convertC`` (convert.c:15-20):  (v - 128) / 128  per component.
 
-    TPU note: a stride-2 deinterleave (``v[..., 0::2]`` or a trailing
-    ``[n/2, 2]`` axis) forces a lane relayout that costs ~13x the whole op.
     Bitcasting each (I, Q) byte pair to one u16 and splitting with
-    mask/shift keeps everything elementwise in-lane (little-endian: low
-    byte is I).
+    mask/shift keeps everything elementwise, with no stride-2
+    deinterleave (little-endian: low byte is I).
     """
     x = jnp.asarray(x)
     u16 = jax.lax.bitcast_convert_type(
@@ -52,7 +50,7 @@ def iq_u8_to_planar(x):
 
     Same conversion as :func:`iq_u8_to_cfloat` but the result stays in the
     planar-complex layout (component plane axis at -2, real first) — the
-    TPU-native stream representation: complex64 is interleaved (re, im)
+    planar stream representation: complex64 is interleaved (re, im)
     pairs in memory, so handing downstream ops separate components from a
     complex array costs a stride-2 relayout of the whole block; a planar
     stream never pays it.

@@ -2,7 +2,7 @@
 
 FM: reference SDR/Demod.hs:20-46 — per-sample ``phase(x[n] * conj(x[n-1]))``
 with the previous sample carried across blocks.  The reference runs this as
-a sequential stream fold; on TPU it is a pure shift-and-multiply (the
+a sequential stream fold; here it is a pure shift-and-multiply (the
 "recurrence" only reads one sample back, so it vectorizes exactly).
 
 AM: envelope detection ``|x|`` (the reference has no dedicated AM module;
@@ -21,7 +21,7 @@ __all__ = ["fm_demod", "fm_demod_planar", "am_demod", "fm_mod",
 # atan(z) = z * P(z^2) on [0, 1]: degree-6 Chebyshev-LSQ fit, max error
 # 5.8e-7 rad — below f32 resolution of the result, 4 orders inside the
 # 0.01 differential bound.  Vs jnp.arctan2's libm-style lowering this is
-# pure VPU mul/add/select, which matters at the demod's sample rate.
+# plain mul/add/select, which matters at the demod's sample rate.
 _ATAN_P = (0.00809729493, -0.0377517076, 0.0847596977, -0.135376751,
            0.198950258, -0.33327976, 0.999999715)
 
@@ -90,14 +90,14 @@ def fm_demod_planar(x, last=None, atan2: str = "exact"):
     """:func:`fm_demod` on planar-complex input ``x[..., 2, n]`` (component
     plane axis at -2, real first).
 
-    The planar layout is the TPU-native representation of complex streams:
+    The planar layout is the split representation of complex streams:
     complex64 in memory is interleaved (re, im) pairs, so every op that
     consumes it as separate components pays a stride-2 lane relayout of the
     whole block; planar streams pay it nowhere.  Same math as
     angle(x * conj(prev)) expanded into atan2.
 
     ``atan2``: 'exact' uses jnp.arctan2; 'poly' uses :func:`fast_atan2`
-    (5.8e-7 rad max error, pure VPU arithmetic — the fast path).
+    (5.8e-7 rad max error, plain arithmetic — the fast path).
 
     ``last``: previous block's final sample as ``[..., 2]`` (zeros
     default).  Returns ``(y[..., n], new_last[..., 2])``.

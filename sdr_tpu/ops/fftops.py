@@ -5,199 +5,31 @@ and real (fftwReal', FFT.hs:79-111) DFT pipes, plus ``fftwParallel``
 (FFT.hs:118-168), a thread pool performing DFTs in a software pipeline with
 in-order reassembly.
 
-On TPU the pool disappears: frames are *batched* into one array and a single
-``jnp.fft.fft`` over the batch saturates the chip, preserving order by
-construction.  ``spectrogram`` packages the windowed-overlapping-frame
+Here the pool disappears: frames are *batched* into one array and a single
+``jnp.fft.fft`` (cuFFT on the GPU) transforms the batch, preserving order
+by construction.  ``spectrogram`` packages the windowed-overlapping-frame
 pipeline (BASELINE config #3, the waterfall).
 """
 
 from __future__ import annotations
 
-import functools
-import os
 from typing import Optional
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 from sdr_tpu.ops import design
 
-__all__ = ["fft", "rfft", "frame", "spectrogram", "waterfall_image",
-           "fft_mxu", "fft_mxu_planar"]
+__all__ = ["fft", "rfft", "frame", "spectrogram", "waterfall_image"]
 
 
-# ---------------------------------------------------------------------------
-# MXU four-step FFT: the DFT as two batched matmuls + a twiddle multiply.
-#
-# jnp.fft.fft lowers to a VPU-bound XLA custom call on TPU (measured
-# 1.3 GS/s at n=1024 batched — a fraction of the HBM bound).  The
-# Cooley-Tukey four-step factorization N = N1*N2 turns the same DFT into
-# dense [N1,N1] and [N2,N2] matrix products over a [N1, N2] view of each
-# transform — exactly MXU work.  It spends ~6.4x the FLOPs of an FFT at
-# n=1024 (2N(N1+N2) vs N log2 N complex MACs) but the systolic array has
-# FLOPs to burn and the op becomes memory-bound instead of
-# custom-call-bound.
-#
-# Derivation (x[n], n = n1*N2 + n2; X[k], k = k1 + N1*k2):
-#     X[k1 + N1*k2] = sum_n2 W_N^(n2 k1) W_N2^(n2 k2)
-#                       * sum_n1 x[n1*N2 + n2] W_N1^(n1 k1)
-# i.e. stage 1: B = F_N1 @ A   (A[n1, n2] = x, the row-major reshape)
-#      twiddle: C = B * W      (W[k1, n2] = W_N^(k1 n2))
-#      stage 2: X^T = C @ F_N2, read out transposed (k = k1 + N1*k2).
-#
-# Complex arithmetic runs PLANAR (separate real/imag f32 arrays, four real
-# matmuls per stage) — complex64 never reaches the matmuls, matching the
-# framework-wide layout rule (docs/DESIGN.md §2).
-# ---------------------------------------------------------------------------
-
-# 'auto' routes to the matmul DFT inside the MEASURED winning range
-# (r5 crossover sweep, 16M samples/batch, one device window):
-#   n=256:   xla 9.80 GS/s  vs mxu 3.20   -> xla
-#   n=1024:  xla 1.25       vs mxu 8.11   -> mxu
-#   n=4096:  xla 3.60       vs mxu 5.31   -> mxu
-#   n=16384: xla 6.95       vs mxu 8.50   -> mxu
-# Below _MIN the [N1,N1]/[N2,N2] constants and lane fill lose to the
-# custom call; above _MAX (unmeasured) 'auto' stays on the exact call.
-_MXU_FFT_AUTO_MIN = 1024
-_MXU_FFT_AUTO_MAX = 16384
-
-
-def fft_precision():
-    """Matmul precision of the four-step DFT stages.
-
-    HIGH (bf16x3) by default: measured (r5 probe, n=1024, vs the f64
-    reference) max relative error 1.7e-5 — far inside any
-    display/demod tolerance (the reference never tests its FFT at all:
-    tests/TestSuite.hs has no FFT properties; jnp.fft's own f32 custom
-    call measures 3.2e-7, HIGHEST 1.3e-7).  In-op, HIGH runs ~5% faster
-    than HIGHEST at (32,32) and the gap widens with the
-    lane-preferred (8,128) split where stage 2 is the MXU term.
-    Override with ``SDR_TPU_FFT_PRECISION=default|high|highest``
-    (DEFAULT, bf16x1, measures 3.2e-3 relative — rejected as the
-    default: within a decade of a 0.01-absolute reading of the
-    reference's differential bound on unit-power signals).
-    """
-    name = os.environ.get("SDR_TPU_FFT_PRECISION", "high").lower()
-    try:
-        return {"default": jax.lax.Precision.DEFAULT,
-                "high": jax.lax.Precision.HIGH,
-                "highest": jax.lax.Precision.HIGHEST}[name]
-    except KeyError:
-        raise ValueError(
-            f"SDR_TPU_FFT_PRECISION={name!r}: expected "
-            "'default' | 'high' | 'highest'") from None
-
-
-def _fft_factors(n: int) -> Optional[tuple]:
-    """Pick N1*N2 = n with N2 lane-friendly, or None.
-
-    Prefer ``N2 = 128`` (the TPU lane width) whenever it divides n with
-    N1 in [8, 128]: the r5 sweep measured (8, 128) at 1.9x the
-    most-square (32, 32) split at n=1024 (8.11 vs 4.24 GS/s, same
-    window) — with N2=128 the stage-2 contraction runs over full lanes
-    and the transposed readout [k2, k1] is already the natural output
-    order.  Otherwise fall back to the most-square split (minimizes
-    N1+N2, the per-sample MAC count); factors below 8 waste the MXU's
-    8-sublane tiling, above 2048 the DFT matrices rival the data."""
-    if n < 64:
-        return None
-    if n % 128 == 0 and 8 <= n // 128 <= 128:
-        return (n // 128, 128)
-    best = None
-    d = int(np.sqrt(n))
-    while d >= 8:
-        if n % d == 0 and n // d <= 2048:
-            best = (d, n // d)
-            break
-        d -= 1
-    return best
-
-
-@functools.lru_cache(maxsize=None)
-def _dft_consts(n1: int, n2: int):
-    """(F1r, F1i, Wr, Wi, F2r, F2i) as float32 numpy (host, cached)."""
-    n = n1 * n2
-    k1 = np.arange(n1)
-    f1 = np.exp(-2j * np.pi * np.outer(k1, k1) / n1)
-    tw = np.exp(-2j * np.pi * np.outer(k1, np.arange(n2)) / n)
-    k2 = np.arange(n2)
-    f2 = np.exp(-2j * np.pi * np.outer(k2, k2) / n2)
-    return tuple(a.astype(np.float32)
-                 for a in (f1.real, f1.imag, tw.real, tw.imag,
-                           f2.real, f2.imag))
-
-
-def fft_mxu_planar(xr, xi, precision=None, factors=None):
-    """Four-step DFT over the last axis of planar float32 (re, im) arrays.
-
-    Returns planar ``(Xr, Xi)``.  Last-axis length must factor per
-    ``_fft_factors`` (or pass ``factors=(n1, n2)``); leading axes are
-    batched.  This is the in-chain form (planar pipelines call it
-    without ever building complex64).
-
-    ``precision`` defaults to :func:`fft_precision` (HIGH, bf16x3 —
-    measured accuracy/throughput tradeoff in its docstring).
-    """
-    if precision is None:
-        precision = fft_precision()
-    n = xr.shape[-1]
-    fac = factors or _fft_factors(n)
-    if fac is None:
-        raise ValueError(f"fft_mxu: no MXU-friendly factorization of {n}")
-    n1, n2 = fac
-    if n1 * n2 != n:
-        raise ValueError(f"factors {fac} != {n}")
-    f1r, f1i, wr, wi, f2r, f2i = (jnp.asarray(c) for c in _dft_consts(n1, n2))
-    lead = xr.shape[:-1]
-    ar = xr.reshape(lead + (n1, n2))
-    ai = xi.reshape(lead + (n1, n2))
-    dot = functools.partial(jnp.einsum, precision=precision,
-                            preferred_element_type=jnp.float32)
-    # stage 1: B = F1 @ A  (contract over n1)
-    br = dot("ij,...jm->...im", f1r, ar) - dot("ij,...jm->...im", f1i, ai)
-    bi = dot("ij,...jm->...im", f1r, ai) + dot("ij,...jm->...im", f1i, ar)
-    # twiddle: C = B * W  (elementwise [n1, n2], fuses into the matmuls)
-    cr = br * wr - bi * wi
-    ci = br * wi + bi * wr
-    # stage 2 + transposed readout: X^T[k2, k1] = sum_n2 F2[n2,k2] C[k1,n2]
-    xr_ = dot("nk,...in->...ki", f2r, cr) - dot("nk,...in->...ki", f2i, ci)
-    xi_ = dot("nk,...in->...ki", f2r, ci) + dot("nk,...in->...ki", f2i, cr)
-    return xr_.reshape(lead + (n,)), xi_.reshape(lead + (n,))
-
-
-def fft_mxu(x, axis: int = -1, precision=None, factors=None):
-    """Complex-in/complex-out wrapper over :func:`fft_mxu_planar`."""
-    x = jnp.moveaxis(x, axis, -1)
-    xr = x.real.astype(jnp.float32)
-    xi = (x.imag.astype(jnp.float32) if jnp.iscomplexobj(x)
-          else jnp.zeros_like(xr))
-    yr, yi = fft_mxu_planar(xr, xi, precision=precision, factors=factors)
-    return jnp.moveaxis(jax.lax.complex(yr, yi), -1, axis)
-
-
-def fft(x, axis: int = -1, method: str = "auto"):
+def fft(x, axis: int = -1):
     """Complex-to-complex DFT (unnormalized forward, FFTW convention).
 
     Reference: fftw' (FFT.hs:44-76).  Works batched over leading dims — the
     batched form subsumes ``fftwParallel`` (FFT.hs:118-168).
-
-    ``method``: 'xla' = jnp.fft custom call; 'mxu' = the four-step matmul
-    factorization (`fft_mxu`); 'auto' picks 'mxu' on TPU when the length
-    factors AND sits in the measured winning range [1024, 16384] (the
-    r5 crossover sweep above _MXU_FFT_AUTO_MIN; the custom call wins
-    at n <= 256; explicit method='mxu' remains unbounded).
     """
-    x = jnp.asarray(x)
-    n = int(x.shape[axis])
-    if method == "auto":
-        on_tpu = jax.default_backend() == "tpu"
-        method = ("mxu" if (on_tpu
-                            and _MXU_FFT_AUTO_MIN <= n <= _MXU_FFT_AUTO_MAX
-                            and _fft_factors(n)) else "xla")
-    if method == "mxu":
-        return fft_mxu(x, axis=axis)
-    return jnp.fft.fft(x, axis=axis)
+    return jnp.fft.fft(jnp.asarray(x), axis=axis)
 
 
 def rfft(x, axis: int = -1):
@@ -221,10 +53,7 @@ def frame(x, size: int, hop: Optional[int] = None, window=None):
     if size % hop == 0:
         # gather-free: frame m = concat of k consecutive hop-rows of the
         # FREE [.., n/hop, hop] reshape — k shifted views, one fused
-        # materialization.  The old jnp.take gather measured 0.14 GS/s
-        # through the whole waterfall chain on TPU (r5 probe4: gathers
-        # materialize index-by-index through HBM); this form is two
-        # orders faster at the same output.
+        # materialization instead of an index gather.
         k = size // hop
         rows = x[..., : (num + k - 1) * hop].reshape(
             x.shape[:-1] + (num + k - 1, hop))
@@ -244,7 +73,7 @@ def spectrogram(x, size: int, hop: Optional[int] = None, window=None,
     """Windowed overlapping FFT magnitude frames (the waterfall pipeline).
 
     Returns [..., num_frames, size] power rows (|X|), DC-centered when
-    ``shift``.  This is the TPU formulation of the reference's
+    ``shift``.  This is the batched formulation of the reference's
     fork -> window -> fftw -> plotWaterfall chain (examples + Plot.hs:72).
     """
     if window is None:
@@ -260,7 +89,7 @@ def waterfall_image(rows, filename: str, db: bool = True) -> None:
 
     The file-output analog of the reference's live OpenGL waterfall
     (Plot.hs:72-78); rendering to an image keeps the subsystem usable
-    headless on a TPU host.
+    on a headless accelerator host.
     """
     import matplotlib
     matplotlib.use("Agg")

@@ -1,6 +1,6 @@
 """Unified FIR / decimation / polyphase-resampling engine.
 
-This is the TPU-native replacement for the reference's entire kernel layer
+This is the replacement for the reference's entire kernel layer
 (c_sources/filter.c, c_sources/decimate.c, c_sources/resample.c and their
 Haskell fallbacks in hs_sources/SDR/FilterInternal.hs).  All three operator
 families are instances of ONE formulation — a strided sliding dot product
@@ -26,35 +26,21 @@ which the recurrence advances by exactly D per output):
     i_m = (t_m + o_m) // I      (= ceil(t_m / I), first input index)
     y[m] = sum_k  taps[o_m + k*I] * x[i_m + k]
 
-This is what makes the operator TPU-native: every output's read position and
-phase is a static function of m, so blocks compile to static gathers +
-matmuls (no sequential scan), and shard-start phases on a device mesh are
-computable without serialization.
+Every output's read position and phase is a static function of m, so
+blocks compile to static gathers and convolutions (no sequential scan),
+and shard-start phases on a device mesh are computable without
+serialization.
 
-MXU mapping: the hot paths are ``conv`` (XLA's conv_general_dilated — its
-native TPU lowering, which also fuses with neighboring elementwise ops)
-and ``pallas`` (kernels/fir_pallas.py — lane-aligned banded matmuls in
-VMEM; at batched in-chain shapes it wins unit-stride at EVERY measured
-tap count — 88 vs 3.2 G/s at k32, bench_kernels r2 — so the measured
-dispatch table routes ``method='auto'`` unit-stride calls to it).  A
-third ``direct`` gather-einsum path covers tiny blocks and CPU.  An
-explicit banded-matmul XLA path existed through round 1 and was
-DELETED: measured 3-40x slower than conv at every shape (XLA
-materializes the [P, M] window gather through HBM; the Pallas kernel is
-the same algebra done right, with windows staying in VMEM).  Strided
-(decimating) reads use a polyphase input split so bands stay dense.
-Complex samples with real taps (the RC kernel variants, filter.c:74)
-are viewed as a [2, N] real batch on the filter/decimate paths, and as
-the INTERLEAVED float32 view of the complex64 buffer on the resampler
-conv path (``_resample_conv_c``) — both variants were measured for both
-families (bench_kernels r2): interleaved wins the resampler 1.5x (1.33
-vs 0.86 GS/s, the planar I-channel conv is already relayout-bound) but
-LOSES filter/decimate 2.7-4.8x (0.34 vs 0.90 at k128 unit-stride, 1.7
-vs 8.2 at k51/d8 — doubling kernel width costs more than the planar
-stack's two relayout passes), so each family keeps its winner.  NOTE the shape
-rule that dominates all of these (docs/DESIGN.md §2b): measure and run
-FIRs BATCHED ([32, n] blocks) — a single long 1-D conv degenerates
-~100x on the TPU lowering.
+Execution paths: ``conv`` (XLA's conv_general_dilated, cuDNN on the GPU,
+which also fuses with neighboring elementwise ops), ``direct`` (a
+gather-einsum for tiny blocks and the CPU), and for rational resamplers
+``band_xla`` (a banded matmul over a free reshape of the input).
+``method='auto'`` dispatches from the table measured per device family
+(utils/tuning.py).  Strided (decimating) reads use a polyphase input split.
+Complex samples with real taps (the RC kernel variants, filter.c:74) are
+viewed as a [2, N] real batch on the filter/decimate paths, and as the
+INTERLEAVED float32 view of the complex64 buffer on the resampler conv
+path (``_resample_conv_c``).
 
 Numerical contract: float32 in, float32 accumulate, identical summation
 *results* to the reference within its own cross-implementation test bound of
@@ -79,7 +65,7 @@ __all__ = [
     "prepare_phase_table",
 ]
 
-LANE = 128  # TPU lane width (also the "small block" dispatch threshold).
+LANE = 128  # below this many outputs, method="auto" takes "direct"
 
 
 # ---------------------------------------------------------------------------
@@ -226,7 +212,7 @@ def _fir_direct(taps_dev, x, num: int, factor: int, start: int = 0):
 
 
 def _fir_conv(taps_dev, x, num: int, factor: int, start: int = 0):
-    """lax.conv_general_dilated path (XLA's native TPU conv -> MXU).
+    """lax.conv_general_dilated path (cuDNN convolution on the GPU).
 
     ConvGeneralDilated computes cross-correlation (no kernel flip), which is
     exactly the reference's orientation (filter.c:16-24).
@@ -276,11 +262,6 @@ def _dispatch(taps_np: np.ndarray, x, num: int, factor: int, method: str,
         y = _fir_direct(jnp.asarray(taps_np), xr, num, factor, start)
     elif method == "conv":
         y = _fir_conv(jnp.asarray(taps_np), xr, num, factor, start)
-    elif method == "pallas":
-        from sdr_tpu.kernels import fir_pallas
-        # sub-row unit-stride origins fold into the kernel's band
-        # (zero-copy); the kernel slices explicitly otherwise
-        y = fir_pallas.fir_strided(taps_np, xr, num, factor, start=start)
     else:
         raise ValueError(f"unknown method {method!r}")
     return rebuild(y)
@@ -299,9 +280,7 @@ def fir_filter(taps, x, num: Optional[int] = None, method: str = "auto",
     ``x`` may be real or complex (complex handled as a 2-row real batch,
     like the interleaved re/im layout of filter.c:74-84).  ``start`` is a
     static input origin folded into the kernel — zero-copy (equivalent
-    to calling on ``x[..., start:]`` without the slice's HBM copy) on
-    the conv and direct paths; the pallas path has no origin parameter
-    and falls back to the explicit slice.
+    to calling on ``x[..., start:]`` without the slice's copy).
     """
     taps_np = np.asarray(taps, dtype=np.float32)
     if num is None:
@@ -363,22 +342,13 @@ def fir_resample(taps, interpolation: int, decimation: int, x,
         return y, 0
 
     if method == "auto":
-        from sdr_tpu.utils.device import on_tpu
+        from sdr_tpu.utils.device import device_family
         from sdr_tpu.utils import tuning
         method = tuning.best_resample_method(
-            "tpu" if on_tpu() else "cpu", taps_np.shape[0], I, D, num)
-    if method in ("band", "band_pallas", "band_xla"):
+            device_family(), taps_np.shape[0], I, D, num)
+    if method == "band_xla":
         xr, rebuild = _as_real_batch(x)
-        y = None
-        if method != "band_xla":
-            # lane-aligned Pallas formulation (kernels/resample_pallas.py)
-            # wherever its geometry applies; the XLA band is the fallback
-            from sdr_tpu.kernels import resample_pallas
-            y = resample_pallas.resample_band(
-                taps_np, I, D, xr, offset, num, start,
-                required=(method == "band_pallas"))
-        if y is None:
-            y = _resample_band(taps_np, I, D, xr, offset, num, start)
+        y = _resample_band(taps_np, I, D, xr, offset, num, start)
         return rebuild(y), end_offset
     method = _pick_method(method, num, D, taps_np.shape[0])
     if method == "direct":
@@ -418,7 +388,7 @@ def _resample_conv(taps_np: np.ndarray, I: int, D: int, x, offset: int,
 
     is a stride-D VALID conv with I output channels, and the result only
     needs a [Q, I] -> [Q*I] interleave (free relayout, no gather).  This is
-    the MXU formulation of the reference's per-group recurrence
+    the convolution form of the reference's per-group recurrence
     (c_sources/resample.c:16-48) — all phases advance in lockstep instead
     of sequentially.
     """
@@ -461,8 +431,8 @@ def _resample_conv(taps_np: np.ndarray, I: int, D: int, x, offset: int,
 
 def _resample_band(taps_np: np.ndarray, I: int, D: int, x, offset: int,
                    num: int, start: int = 0):
-    """Banded-matmul polyphase resampler (the MXU formulation that wins
-    the 3/10 chain stage; real data, leading dims batched).
+    """Banded-matmul polyphase resampler (real data, leading dims
+    batched).
 
     Group G consecutive outputs per band row, with G a multiple of I so
     every row has the same phase pattern and rows advance through the
@@ -475,11 +445,8 @@ def _resample_band(taps_np: np.ndarray, I: int, D: int, x, offset: int,
     reshape of the input and the window tail past ``S`` is read through
     the one-row-shifted view (main + halo split dots — the same
     zero-copy structure as the int8 front end, ops/quantized.py).  No
-    window matrix, no gather, no tiny-channel strided conv: the conv
-    formulation of this op lowers to a C_out=I stride-D conv whose
-    effective MXU utilization is a few percent (measured 1.9 ms vs a
-    0.5 ms HBM floor at the chain's 3/10 stage); the dense band costs
-    ``~128*D/I`` MACs per output on fully-filled lanes instead.
+    window matrix, no gather, no tiny-channel strided conv; the dense
+    band costs ``~128*D/I`` MACs per output.
 
     A ragged tail of ``num mod G`` outputs (plus any outputs whose rows
     would read past the buffer) is computed by the direct gather path
@@ -531,7 +498,7 @@ def _resample_band(taps_np: np.ndarray, I: int, D: int, x, offset: int,
         # main rows: a free reshape (start-aligned).  Halo rows from the
         # MAIN VIEW shifted by one row plus a tiny tail slice — never a
         # non-start-aligned slice of the input, which XLA materializes
-        # as a FULL copy (the front end's r3 lesson, ops/quantized.py)
+        # as a FULL copy (ops/quantized.py)
         main = x[..., : P * S].reshape(lead + (P, S))
         cdims = (((main.ndim - 1,), (0,)), ((), ()))
         y = jax.lax.dot_general(main, jnp.asarray(B[:S]), cdims,
@@ -571,10 +538,7 @@ def _resample_conv_c(taps_np: np.ndarray, I: int, D: int, x, offset: int,
     channels — channel j*2 + c computes component c of phase j via the
     phase-j kernel zero-stuffed to positions 2k + c — with stride 2D.
     The [Q, 2I] -> [Q*2I] relayout IS the interleaved complex output,
-    viewed back as complex64 with no gather or transpose pair.  (The
-    planar alternative — ``_as_real_batch`` + ``_resample_conv`` — was
-    measured 1.5x slower here; filter/decimate keep planar, see the
-    module docstring.)
+    viewed back as complex64 with no gather or transpose pair.
 
     Requires an 8-byte complex dtype for the float32 view; other complex
     inputs (e.g. numpy complex128) take the planar path instead.

@@ -2,7 +2,7 @@
 
 The reference's only IIR is the hard-coded DC blocker (filter.c:152-161).
 A production SDR toolkit needs general IIR sections (audio de-emphasis,
-notch filters, channel equalizers), and the TPU-native formulation is the
+notch filters, channel equalizers), and the parallel formulation is the
 same trick ops/scans.py uses for the first-order case, generalized: a
 linear recurrence of order ``p``
 

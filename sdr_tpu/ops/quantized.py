@@ -1,11 +1,9 @@
-"""Quantized MXU front end: fused IQ-convert + decimating FIR on the
-int8 systolic array.
+"""Quantized front end: fused IQ-convert + decimating FIR as an integer
+matmul with exact s32 accumulation.
 
 The receive chain's front half — interleaved u8 IQ -> (x-128)/128 ->
 K-tap decimate-by-f — is where all the samples are (every later stage
-runs at 1/f rate), yet as an f32 conv it is VPU-bound (the MXU wants
-matmuls).  This module runs it as two int8 matmuls with exact int32
-accumulation:
+runs at 1/f rate).  This module runs it as one u8 x s8 dot:
 
 * the interleaved u8 block is viewed as non-overlapping window rows
   ``X[p, s] = raw[p*stride + s]`` (one free reshape); each row's window
@@ -14,10 +12,10 @@ accumulation:
   MAIN VIEW shifted by one row (plus one tiny tail slice) — the
   overlapping window matrix never materializes and no full-input copy
   is ever made (a non-start-aligned slice would be one);
-* the u8 samples feed the MXU DIRECTLY: with a per-column constant
+* the u8 samples feed the dot DIRECTLY: with a per-column constant
   ``corr[c] = 128 * sum_w B[w, c]`` (host-side),
   ``X_u8 @ B - corr  ==  (X - 128) @ B`` exactly — no ``x ^ 0x80``
-  elementwise pass over the (100s-of-MB) input (measured ~4% of the op);
+  elementwise pass over the input;
 * taps are quantized to 16 bits (max |tap| -> 32512 = 127*256) and split
   into hi/lo s8 bytes side by side, so one dot accumulates both bands in
   s32 and ``acc = 256*hi + lo`` is the exact integer correlation with
@@ -32,7 +30,7 @@ only), 50x inside the reference's 0.01 differential-test bound
 (tests/TestSuite.hs:284-289).
 
 Reference semantics covered: convertC (convert.c:15-20) fused with
-decimateRR/RC (decimate.c:16-24); the banded-window idea is the MXU analog
+decimateRR/RC (decimate.c:16-24); the banded window is the matmul analog
 of their SIMD dot products.
 """
 
@@ -46,8 +44,7 @@ import jax.numpy as jnp
 
 __all__ = ["fir_decimate_u8_planar", "u8_front_plan"]
 
-LANE = 128
-Q_DEFAULT = 64   # band geometry (outputs/window row): fastest measured (r3 A/B)
+Q_DEFAULT = 64   # band geometry (outputs per window row)
 
 
 @functools.lru_cache(maxsize=32)
@@ -56,18 +53,15 @@ def _plan(taps_bytes: bytes, n_taps: int, factor: int,
     """Host-side banded-matrix construction (cached per (taps, factor)).
 
     ``precision='s16'``: taps quantized to 16 bits, band split into hi/lo
-    s8 matrices (two MXU dots, ~2e-4 abs accuracy).  ``'s8'``: taps
-    quantized straight to 8 bits, ONE band (half the MXU work,
+    s8 matrices (~2e-4 abs accuracy).  ``'s8'``: taps
+    quantized straight to 8 bits, ONE band (half the matmul work,
     ~2e-3 abs — still 5x inside the reference's 0.01 differential bound);
     the lo matrix is returned as None.
 
     ``q_out``: outputs per window row (band has ``2*q_out`` columns =
     I then Q halves).  The band's dense MAC cost per complex output is
     ``(2*f*q_out + halo) * 2*q_out / q_out = 4*f*q_out + 2*halo`` —
-    LINEAR in q_out, so narrower rows cost less MXU time as long as the
-    column count ``2*q_out`` still fills the 128 output lanes:
-    ``q_out=64`` halves the dense band per output vs 128 at full lane
-    width (the Pallas kernels' default on TPU).
+    LINEAR in q_out.
 
     ``byte_off``: static shift of every window by that many input bytes —
     the band simply gets ``byte_off`` leading zero rows.  This lets a
@@ -111,14 +105,9 @@ def u8_front_plan(taps, factor: int, precision: str = "s16",
                  int(q_out), int(byte_off))
 
 
-PALLAS_Q_DEFAULT = 128  # r4 sweep: 3.28 ms vs 3.55 (Q=64) / 4.21 (Q=256)
-                        # at chain shapes — the VMEM kernel's optimum sits
-                        # one step wider than the XLA form's (Q=64)
-
-
 def fir_decimate_u8_planar(taps, factor: int, raw, num: int = None, *,
-                           impl: str = "xla", precision: str = "s16",
-                           byte_off: int = 0, q_out: int | None = None):
+                           precision: str = "s16", byte_off: int = 0,
+                           q_out: int | None = None):
     """Interleaved u8 IQ ``[..., 2n]`` -> decimated planar f32
     ``[..., 2, num]`` in one fused step (convert + K-tap decimate-by-f).
 
@@ -127,45 +116,17 @@ def fir_decimate_u8_planar(taps, factor: int, raw, num: int = None, *,
     ``fir_decimate`` (reference decimate.c:73-82 on convert.c:15-20
     output), computed exactly in int arithmetic with 16-bit-quantized
     taps (``precision='s16'``) or 8-bit-quantized taps (``'s8'``: one
-    band instead of hi/lo — half the MXU work, ~2e-3 abs accuracy).
+    band instead of hi/lo — half the matmul work, ~2e-3 abs accuracy).
 
-    ``impl``: 'xla' (this module's split main+halo u8 dot — the input is
-    a free reshape feeding the MXU directly, no window matrix and no
-    elementwise offset pass; see the module docstring), 'pallas'
-    (kernels/u8_front_pallas.py — same plan, windows stay in VMEM,
-    bit-identical output), or 'auto' = 'pallas' on TPU when the window
-    tail fits the kernel's 128-byte halo row, else 'xla'.  History of
-    the r3 measurements that set this (bench_front_ab.json, 32x10 MiB
-    chain shapes): the r2 xor+concat XLA form measured 8.6 ms and the
-    Pallas kernel 12-15 ms — BOTH dominated by a non-start-aligned
-    slice in their operand construction that XLA materializes as a FULL
-    input copy; with halo rows derived from the start-aligned main view
-    instead, XLA drops to 4.6 ms and the Pallas kernel to 3.37 ms
-    (s16, Q=64 — windows never touch HBM, so it wins once the operands
-    are views).  ``byte_off``
-    statically shifts every window by that many bytes into ``raw``
-    (zero-copy streaming seams; see u8_front_plan).  ``q_out`` picks the
-    band geometry (outputs per window row) — any value yields identical
-    samples; Q=64 measured fastest (Q=32 loses ~20% despite half the
-    MACs — the op is not MXU-bound at chain shapes).
+    The input is a free reshape feeding the dot directly, with no
+    window matrix and no elementwise offset pass (see the module
+    docstring).  ``byte_off`` statically shifts every window by that many
+    bytes into ``raw`` (zero-copy streaming seams; see u8_front_plan).
+    ``q_out`` picks the band geometry (outputs per window row) — any
+    value yields identical samples.
     """
-    if impl == "auto":
-        # r3 measured dispatch: with the shifted-main-view operands the
-        # Pallas kernel WINS on TPU (3.37 ms vs 4.63 XLA at the chain's
-        # 32x10 MiB, s16 Q=64 — bench_front_ab.json); it requires the
-        # window tail to fit its 128-byte halo row.  CPU keeps XLA
-        # (interpret-mode Pallas is a correctness path only).
-        from sdr_tpu.utils.device import on_tpu
-        n_taps = np.asarray(taps).shape[0]
-        fits = byte_off + 2 * (n_taps - 1) + 2 - 2 * factor <= 128
-        impl = "pallas" if (on_tpu() and fits) else "xla"
     if q_out is not None and int(q_out) < 1:
         raise ValueError(f"q_out must be >= 1, got {q_out}")
-    if impl == "pallas":
-        from sdr_tpu.kernels.u8_front_pallas import u8_front_pallas
-        return u8_front_pallas(
-            taps, factor, raw, num, precision=precision, byte_off=byte_off,
-            q_out=int(q_out) if q_out is not None else PALLAS_Q_DEFAULT)
     taps = np.asarray(taps, dtype=np.float32)
     K, f = taps.shape[0], int(factor)
     q_out = int(q_out) if q_out is not None else Q_DEFAULT
@@ -195,17 +156,15 @@ def fir_decimate_u8_planar(taps, factor: int, raw, num: int = None, *,
     # starts at 0, which XLA treats as a view); each row's window tail
     # past ``stride`` is the first hw = W - stride bytes of row p+1, so
     # the halo rows come from the MAIN VIEW shifted by one row plus one
-    # tiny tail slice — total copy cost ~hw/stride of the input.  (The
-    # r2 form read the halo through ``raw[stride:]``, a non-start-aligned
-    # slice that XLA materializes as a FULL copy of the input: measured
-    # 8.3 -> 4.6 ms for the whole op when replaced by this, r3 A/B.)
+    # tiny tail slice — total copy cost ~hw/stride of the input (reading
+    # the halo through ``raw[stride:]``, a non-start-aligned slice, would
+    # make XLA materialize a FULL copy of the input).
     main = raw[..., : P * stride].reshape(lead + (P, stride))
     hw = max(0, W - stride)
     # hi|lo bands side by side in ONE dot — the input is read once for
     # both bands; the u8 samples feed the dot directly and the constant
     # column correction applies the -128 offset afterwards (exact):
     #   (X - 128) @ B  ==  X_u8 @ B - 128 * colsum(B)
-    # (measured ~4% faster than the x^0x80 bitcast pass, r3 A/B)
     B2 = Bhi if Blo is None else np.concatenate([Bhi, Blo], axis=1)
     if B2.shape[0] < stride:                    # K <= f: band inside a row
         B2 = np.pad(B2, [(0, stride - B2.shape[0]), (0, 0)])

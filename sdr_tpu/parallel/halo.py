@@ -48,6 +48,11 @@ def left_halo(x, h: int, axis_name: str, fill=0):
     zero-padded warmup; raw-byte streams use their neutral code instead,
     e.g. 0x80 for excess-128 IQ).
     """
+    if h > x.shape[-1]:
+        raise ValueError(
+            f"halo of {h} samples exceeds the {x.shape[-1]}-sample shard: "
+            "a stage's history must come from one neighbor; use fewer "
+            "shards or longer blocks")
     return _rotate_right(x[..., x.shape[-1] - h:], axis_name, fill)
 
 

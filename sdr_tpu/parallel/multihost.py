@@ -3,9 +3,9 @@
 SURVEY.md §7.6: multi-host streams are fed by per-host file/UDP readers;
 each host ingests only the time-span its local devices own, and the global
 array is assembled with ``jax.make_array_from_process_local_data`` — the
-TPU-native replacement for the per-device STM mailboxes the reference uses
-inside one process (RTLSDRStream.hs:78).  Halo exchange then rides ICI
-within hosts and DCN across hosts through the same ``ppermute`` calls
+replacement for the per-device STM mailboxes the reference uses inside one
+process (RTLSDRStream.hs:78).  Halo exchange then rides the links within
+hosts and the network across hosts through the same ``ppermute`` calls
 (parallel/halo.py) — XLA routes them.
 
 Single-process multi-device (the CI/virtual-mesh case) degenerates to
@@ -29,8 +29,9 @@ def init_distributed(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialize multi-process JAX (no-op when single-process).
 
-    On TPU pods the arguments come from the environment and can be
-    omitted; pass them explicitly for manual bring-up.
+    Pass the coordinator address (e.g. ``localhost:<port>``), process
+    count and this process's id explicitly: nothing in a plain GPU host's
+    environment provides them.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator_address=coordinator,

@@ -115,7 +115,7 @@ def run_time_batched(ops: Sequence[StreamOp], x, nblocks: int,
     in-memory rotations).  This is the throughput formulation of offline
     processing: a sequential carry-chained block loop leaves the chip idle
     between dependent dispatches, whereas here every block's convs batch
-    into single large MXU ops.  Output equals the sequential streamed run
+    into single large device ops.  Output equals the sequential streamed run
     exactly (same warmup zeros; tested in test_parallel.py).
 
     ``carries`` (per-op streaming state from a previous segment) +

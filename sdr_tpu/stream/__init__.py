@@ -7,7 +7,6 @@ from sdr_tpu.stream.ops import (  # noqa: F401
     U8FrontEnd,
     U8FrontDemod,
     Fir,
-    ResampleFirScale,
     FmDemod,
     AmDemod,
     Agc,

@@ -5,7 +5,7 @@ each stateful operator handling the seam between adjacent blocks via a
 dedicated cross-buffer code path and explicit carried state
 (SDR/Filter.hs:530-727, SDR/Demod.hs:39-46, SDR/Util.hs:329-348).
 
-TPU-native formulation: every operator is a pure function
+Here every operator is a pure function
 
     apply(carry, x[..., n_in]) -> (carry', y[..., n_out])
 

@@ -1,8 +1,8 @@
 from sdr_tpu.utils.args import parse_size  # noqa: F401
-from sdr_tpu.utils.host import to_host, from_host  # noqa: F401
+from sdr_tpu.utils.cache import enable_compile_cache  # noqa: F401
 from sdr_tpu.utils.device import (  # noqa: F401
     device_kind,
-    on_tpu,
+    device_family,
     best_method,
     feature_select,
 )
@@ -11,5 +11,6 @@ from sdr_tpu.utils.roofline import (  # noqa: F401
     chain_roofline,
     stage_costs,
     Ceilings,
-    MEASURED_CEILINGS,
+    PEAKS,
+    peaks_for,
 )

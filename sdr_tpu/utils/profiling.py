@@ -1,7 +1,7 @@
 """Tracing / profiling helpers (SURVEY.md §5.1).
 
 The reference's only instrumentation is the ``rate`` pipe and Criterion
-(SDR/PipeUtils.hs:40-55); on TPU the native tool is the XLA profiler.
+(SDR/PipeUtils.hs:40-55); on the accelerator the native tool is the XLA profiler.
 ``trace`` wraps stages in named annotations visible in the trace viewer;
 ``profile`` captures a full device trace around a callable.
 """

@@ -1,22 +1,16 @@
 """Measured kernel-dispatch table: pick the FIR execution path from
-recorded benchmark rates, not hardcoded thresholds.
+recorded rates, not hardcoded thresholds.
 
 The reference's dispatch layer (SDR/CPUID.hs:100-104 ``featureSelect``)
-selects among SIMD variants by a *capability* predicate; on TPU every
-strategy is always available and the right choice depends on problem
-shape, so selection is by *measured throughput* instead.  Rates below are
-samples/sec from the committed ``bench_kernels.json`` matrix (the
-Criterion analog, benchmarks/Benchmarks.hs:79-156) at the recorded tap
-counts; ``best_method`` log-interpolates each method's rate at the
-requested tap count and returns the argmax.
+selects among SIMD variants by a *capability* predicate; here every
+strategy is always available and the right choice depends on the device
+family and the problem shape, so selection is by *measured throughput*:
+``best_method`` log-interpolates each method's rate at the requested tap
+count and returns the argmax.  A family not in the table is an error.
 
-Refresh after a new matrix run with::
-
-    python -m sdr_tpu.utils.tuning bench_kernels.json
-
-which prints an updated ``MEASURED`` block to paste in.  A deployment can
-also override at runtime via ``SDR_TPU_TUNING_JSON=<path>`` (same schema:
-``{family: {method: {taps: rate}}}``).
+A deployment can override the table at runtime via
+``SDR_TPU_TUNING_JSON=<path>`` (same schema: ``{family: {fam: {method:
+{taps: rate}}}}``).
 """
 
 from __future__ import annotations
@@ -27,43 +21,36 @@ import os
 
 __all__ = ["best_method", "best_resample_method", "measured_rates"]
 
-# samples/sec by {family: {method: {key: rate}}}.
-# family 'filter' = unit stride, keyed by tap count; 'decimate' =
-# strided, keyed by TAPS PER PHASE ceil(K/f) — the winner flips with
-# the polyphase band density, not the raw tap count (k51/d8 i.e.
-# 7/phase: conv 11.7 vs pallas 7.8 G/s; k128/d4 i.e. 32/phase: pallas
-# 13.3 vs conv 4.6 G/s).  TPU rows are the r5 batched
-# calibrated-pair matrix VERBATIM (bench_kernels.json r5, regenerated by
-# ``python sdr_tpu/utils/tuning.py bench_kernels.json``; real-input rows
-# at [32, n] in-chain shapes — single 1-D convs degenerate ~100x on TPU
-# and must not seed this table).  The r5 refresh reproduced the r3 rates
-# within rounding on every conv/XLA row (those paths are stable); Pallas
-# rows swing ~2x with the device's window bimodality, so only
-# same-window RATIOS are meaningful — dispatch decisions here all
-# exceed that margin.  CPU numbers are rough orders from the test
-# machine — CPU is a correctness backend, not a target.
+# input samples/sec by {family: {fam: {method: {key: rate}}}}.
+# fam 'filter' = unit stride, keyed by tap count; 'decimate' = strided,
+# keyed by TAPS PER PHASE ceil(K/f); 'resample' = rational (I > 1),
+# keyed by ceil(K/I).
+#
+# gpu: NVIDIA H100 80GB HBM3 at a 400 W power limit, tools/kernel_ab.py,
+# f32 at HIGHEST precision, the chains' batched shapes: k51/d8 on
+# [32, 2, 5.2M] (7/phase), k64/d16 (the AM channel filter) on
+# [32, 2, 524k] (4/phase), the 3/10 k31 resampler on [32, 655k]
+# (11/phase), the 64-tap audio FIR on [32, 197k].  'direct' ran at 1/8
+# of the batch (its [num, K] window gather must fit).  conv wins every
+# family; the 64-channel channelizer's k51/d8 on [64, 2, 640k] read the
+# same order (conv 1.01e11, direct 6.28e10).
+#
+# cpu: rough orders from a test machine — the CPU is a correctness
+# backend, not a target.
 MEASURED = {
-    "tpu": {
+    "gpu": {
         "filter": {
-            "conv":   {32: 3.33e9, 128: 9.60e8, 512: 1.79e8},
-            "direct": {32: 4.86e8},
-            "pallas": {32: 6.84e10, 128: 8.39e10, 512: 5.50e10},
+            "conv":   {64: 1.06e10},
+            "direct": {64: 5.76e9},
         },
         "decimate": {
-            "conv":   {7: 1.17e10, 32: 4.58e9},
-            "pallas": {7: 7.80e9, 32: 1.33e10},
+            "conv":   {4: 8.98e10, 7: 1.07e11},
+            "direct": {4: 3.28e10, 7: 6.35e10},
         },
-        # rational (I > 1), keyed by taps per phase ceil(K/I); band =
-        # the r3 banded-matmul formulation (ops/fir.py _resample_band).
-        # Input samples/sec, r3 TPU A/B with the shifted-main-view halo:
-        # band wins EVERY measured regime — Kp=11 at the headline
-        # chain's 3/10 stage shape ([32, 655k] f32): band 1.34 ms vs
-        # conv 1.90; Kp=43 at [32, 131k] (3/10 k128): band 0.20 ms vs
-        # conv 0.48 (band's dense cost is independent of tap count,
-        # conv's grows with it, so the margin widens with taps).
         "resample": {
-            "conv": {11: 1.10e10, 43: 8.68e9},
-            "band": {11: 1.57e10, 43: 2.06e10},
+            "conv":     {11: 8.54e10},
+            "band_xla": {11: 5.07e10},
+            "direct":   {11: 1.55e10},
         },
     },
     "cpu": {
@@ -80,8 +67,9 @@ MEASURED = {
 
 
 def measured_rates(device_family: str):
-    """The active rate table for ``device_family`` ('tpu' | 'cpu'):
-    the ``SDR_TPU_TUNING_JSON`` override if set, else ``MEASURED``."""
+    """The active rate table for ``device_family`` ('gpu' | 'cpu'):
+    the ``SDR_TPU_TUNING_JSON`` override if set, else ``MEASURED``.
+    Raises ``ValueError`` for a family with no table."""
     path = os.environ.get("SDR_TPU_TUNING_JSON")
     if path:
         try:
@@ -93,7 +81,10 @@ def measured_rates(device_family: str):
                         for fam, fams in loaded[device_family].items()}
         except (OSError, ValueError):
             pass
-    return MEASURED.get(device_family, MEASURED["cpu"])
+    if device_family not in MEASURED:
+        raise ValueError(f"no measured dispatch table for device family "
+                         f"{device_family!r}; known: {sorted(MEASURED)}")
+    return MEASURED[device_family]
 
 
 def _rate_at(table: dict, n_taps: int) -> float:
@@ -117,19 +108,23 @@ def best_method(device_family: str, n_taps: int, factor: int = 1,
                 num: int = 1 << 20) -> str:
     """Highest measured-rate execution path for a strided FIR.
 
-    Small problems on CPU skip to 'direct' (dispatch overhead dominates
-    and the im2col stays tiny); otherwise the argmax over the measured
-    table for the family.  Unit stride interpolates by tap count;
+    Small problems on the CPU skip to 'direct' (dispatch overhead
+    dominates and the im2col stays tiny); otherwise the argmax over the
+    measured table for the family.  Unit stride interpolates by tap count;
     strided interpolates by taps per polyphase component ceil(K/f) —
     the shape variable the measured winner actually follows.
     """
-    if device_family != "tpu" and num < 4096:
+    table = measured_rates(device_family)
+    if device_family == "cpu" and num < 4096:
         return "direct"
     if factor == 1:
         fam, key = "filter", n_taps
     else:
         fam, key = "decimate", -(-n_taps // factor)
-    table = measured_rates(device_family).get(fam, {})
+    return _argmax(table.get(fam, {}), key)
+
+
+def _argmax(table: dict, key: int) -> str:
     best, best_rate = "conv", 0.0
     for method, rates in table.items():
         r = _rate_at(rates, key)
@@ -143,51 +138,9 @@ def best_resample_method(device_family: str, n_taps: int,
                          num: int = 1 << 20) -> str:
     """Execution path for a rational (I > 1) resampler: argmax over the
     measured 'resample' family, keyed by taps per phase ceil(K/I).
-    Small problems take the gather path (dispatch overhead dominates)."""
-    if num < 4096 and device_family != "tpu":
+    Small problems on the CPU take the gather path (dispatch overhead
+    dominates)."""
+    table = measured_rates(device_family)
+    if device_family == "cpu" and num < 4096:
         return "direct"
-    key = -(-n_taps // interpolation)
-    table = measured_rates(device_family).get("resample", {})
-    best, best_rate = "conv", 0.0
-    for method, rates in table.items():
-        r = _rate_at(rates, key)
-        if r > best_rate:
-            best, best_rate = method, r
-    return best
-
-
-def _main(argv):
-    """Regenerate the MEASURED tpu block from a bench_kernels.json.
-
-    Only REAL-input rows seed the table (complex rows run through the
-    same real paths via the planar view — their per-input-sample rates
-    are not comparable).  Decimate rows are keyed by taps per phase
-    (``filter_r_k128_conv`` -> filter[conv][128];
-    ``decimate_r_k51_d8_conv`` -> decimate[conv][ceil(51/8)]).
-    """
-    with open(argv[1]) as fh:
-        m = json.load(fh)
-    table: dict = {"filter": {}, "decimate": {}}
-    for key, rate in m.items():
-        parts = key.split("_")
-        if parts[0] not in table or len(parts) < 4 or parts[1] != "r":
-            continue
-        if parts[2][0] != "k" or not parts[2][1:].isdigit():
-            continue  # e.g. the k128sym comparison rows: not dispatch rows
-        ktaps = int(parts[2][1:])
-        if parts[0] == "decimate":
-            factor = int(parts[3][1:]) if parts[3][0] == "d" else 4
-            method = parts[-1]
-            table["decimate"].setdefault(method, {})[
-                -(-ktaps // factor)] = rate
-        else:
-            if len(parts) != 4:
-                continue
-            table["filter"].setdefault(parts[3], {})[ktaps] = rate
-    print(json.dumps({"tpu": table}, indent=2, sort_keys=True))
-    return 0
-
-
-if __name__ == "__main__":  # pragma: no cover
-    import sys
-    sys.exit(_main(sys.argv))
+    return _argmax(table.get("resample", {}), -(-n_taps // interpolation))

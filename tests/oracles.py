@@ -76,3 +76,88 @@ def agc_oracle(x, mu, reference, state=1.0):
         y[i] = c
         g = g + mu * (reference - abs(c))
     return y, g
+
+
+# ---------------------------------------------------------------------------
+# Whole-chain references (float64 numpy, vectorized over the stream).  The
+# streaming chains start from zero history, so each is the one-shot
+# formula over the stream with that many zero samples in front.
+# ---------------------------------------------------------------------------
+
+def u8_to_complex(raw):
+    raw = np.asarray(raw, dtype=np.float64)
+    return (raw[..., 0::2] - 128.0) / 128.0 + 1j * (raw[..., 1::2] - 128.0) / 128.0
+
+
+def decimate_stream(taps, factor, x):
+    """Streamed decimator output: history of K - factor zeros."""
+    taps = np.asarray(taps, np.float64)
+    K = len(taps)
+    xp = np.concatenate([np.zeros(max(0, K - factor), x.dtype), x])
+    num = len(x) // factor
+    y = np.zeros(num, np.result_type(x.dtype, np.float64))
+    for k in range(K):
+        y += taps[k] * xp[k: k + num * factor: factor]
+    return y
+
+
+def filter_stream(taps, x):
+    return decimate_stream(taps, 1, x)
+
+
+def resample_stream(taps, interpolation, decimation, x, block):
+    """Streamed rational resampler (offset 0) over blocks of ``block``
+    inputs: y[m] = sum_k taps[o_m + k*I] * X[i_m + k] with the closed-form
+    positions and X the stream behind the history the streaming op keeps
+    (the furthest any block's last output reads past its block)."""
+    taps = np.asarray(taps, np.float64)
+    I, D, K = interpolation, decimation, len(taps)
+    m = np.arange(block * I // D, dtype=np.int64)
+    t = m * D
+    o = (-t) % I
+    i = (t + o) // I
+    H = max(0, int((i + -(-(K - o) // I) - 1).max()) - block + 1)
+    X = np.concatenate([np.zeros(H, x.dtype), x])
+    num = len(x) * I // D
+    m = np.arange(num, dtype=np.int64)
+    t = m * D
+    o = (-t) % I
+    i = (t + o) // I
+    y = np.zeros(num, np.result_type(x.dtype, np.float64))
+    for k in range(-(-K // I)):
+        tap = np.where(o + k * I < K, taps[np.minimum(o + k * I, K - 1)], 0.0)
+        y += tap * X[np.minimum(i + k, len(X) - 1)]   # tap 0 past the end
+    return y
+
+
+def fm_chain_oracle(raw, rf, ars, afl, volume, block):
+    """u8 IQ -> decimate 8 -> FM demod -> 3/10 resample -> audio FIR ->
+    volume (the mono broadcast chain), for a stream of u8 ``block``s."""
+    x = decimate_stream(rf, 8, u8_to_complex(raw))
+    y = np.angle(x * np.conj(np.concatenate([[0j], x[:-1]])))
+    y = resample_stream(ars, 3, 10, y, block // 16)
+    return volume * filter_stream(afl, y)
+
+
+def am_chain_oracle(raw, if_freq, chan, decim, mu, volume, alpha=0.997):
+    """u8 IQ -> mix by -if_freq -> decimate -> AGC -> envelope -> DC
+    blocker -> volume (the AM chain)."""
+    x = u8_to_complex(raw)
+    n = np.arange(len(x), dtype=np.float64)
+    x = x * np.exp(-2j * np.pi * np.mod(if_freq * n, 1.0))
+    x = decimate_stream(chan, decim, x)
+    y, _ = agc_oracle(x, mu, 1.0)
+    y, _ = dc_blocker_oracle(np.abs(y), alpha=alpha)
+    return volume * y
+
+
+def waterfall_oracle(raw, window, hop):
+    """|fftshift(fft(frame * window))| rows, frames every ``hop`` samples
+    behind a history of size - hop zeros."""
+    x = u8_to_complex(raw)
+    size = len(window)
+    X = np.concatenate([np.zeros(size - hop, x.dtype), x])
+    frames = len(x) // hop
+    idx = np.arange(frames)[:, None] * hop + np.arange(size)[None, :]
+    F = np.fft.fft(X[idx] * np.asarray(window, np.float64), axis=-1)
+    return np.abs(np.fft.fftshift(F, axes=-1))

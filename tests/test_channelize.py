@@ -123,7 +123,7 @@ def test_streaming_channelize_time_sharded(rng):
 
 
 def test_stencil_matches_gather(rng):
-    """The gather-free stencil formulation (the TPU path) must match the
+    """The gather-free stencil formulation (the 'auto' path) must match the
     window-gather oracle exactly (VERDICT r3 #6)."""
     from sdr_tpu.ops.channelize import polyphase_channelize, channelizer_taps
     for C, P in ((8, 5), (64, 12)):

@@ -4,8 +4,7 @@ Strategy mirrors the reference suite (tests/TestSuite.hs): run every
 implementation variant on the same randomized inputs and assert pairwise
 closeness within 0.01 absolute (real) / 0.01 magnitude (complex) — the
 reference's published tolerance (TestSuite.hs:284-289).  The "variant list"
-here is {numpy oracle, direct gather, XLA conv, scipy} (the Pallas kernel
-is cross-checked in test_pallas.py).
+here is {numpy oracle, direct gather, XLA conv, XLA band, scipy}.
 """
 
 import numpy as np
@@ -56,7 +55,7 @@ def test_filter_complex(rng, size, ntaps, method):
 def test_filter_symmetric_streaming_path(rng):
     """``symmetric=True`` is a constructor convenience (FirSpec mirrors the
     half-taps; there is NO separate symmetric kernel — docs/DESIGN.md
-    records why the MXU has no FLOP asymmetry to exploit, unlike
+    records why a matmul formulation has no FLOP asymmetry to exploit, unlike
     common.h:160-260).  Cross-check it through the STREAMING path against
     the oracle run with the full mirrored taps — the reference's trick of
     feeding symmetric impls half-taps and generic impls the mirror
@@ -141,7 +140,7 @@ def test_resample_complex(rng, interp, decim):
 @pytest.mark.parametrize("interp,decim", [(3, 10), (2, 3), (7, 23),
                                           (13, 5), (16, 3)])
 def test_resample_band_matches_oracle(rng, interp, decim):
-    """method='band' (the r3 banded-matmul formulation, ops/fir.py
+    """method='band_xla' (the banded-matmul formulation, ops/fir.py
     _resample_band) is differentially identical to the oracle, including
     the phase carry, random start offsets, and the ragged gather tail."""
     size, ntaps = 4096, 31
@@ -154,7 +153,7 @@ def test_resample_band_matches_oracle(rng, interp, decim):
     want, want_off = fir.fir_resample(taps, interp, decim, x, offset, num,
                                       method="direct", start=start)
     got, got_off = fir.fir_resample(taps, interp, decim, x, offset, num,
-                                    method="band", start=start)
+                                    method="band_xla", start=start)
     assert got_off == want_off
     np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL)
 
@@ -162,10 +161,10 @@ def test_resample_band_matches_oracle(rng, interp, decim):
 @pytest.mark.parametrize("interp,decim,ntaps", [(3, 10, 31), (3, 10, 128),
                                                 (2, 3, 64), (5, 7, 33),
                                                 (7, 4, 21)])
-def test_resample_band_pallas_matches_xla(rng, interp, decim, ntaps):
-    """The lane-aligned Pallas band (kernels/resample_pallas.py) against
-    the XLA band and the oracle, across offsets and sub-row origins —
-    long enough input that several main rows plus the ragged tail run."""
+def test_resample_band_xla_geometries(rng, interp, decim, ntaps):
+    """The XLA band against the oracle across offsets and sub-row
+    origins — long enough input that several main rows plus the ragged
+    tail run (tap counts past one row widen the band)."""
     size = 16384
     x = rand_real(rng, size)
     taps = rand_real(rng, ntaps)
@@ -174,26 +173,11 @@ def test_resample_band_pallas_matches_xla(rng, interp, decim, ntaps):
     num = fir.resample_output_count(size - start, ntaps, interp, decim,
                                     offset)
     got, got_off = fir.fir_resample(taps, interp, decim, x, offset, num,
-                                    method="band_pallas", start=start)
-    want, want_off = fir.fir_resample(taps, interp, decim, x, offset, num,
-                                      method="band_xla", start=start)
+                                    method="band_xla", start=start)
+    oracle, want_off = resample_oracle(taps, interp, decim, x[start:],
+                                       offset, num)
     assert got_off == want_off
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL)
-    oracle, _ = resample_oracle(taps, interp, decim, x[start:], offset, num)
     np.testing.assert_allclose(np.asarray(got), oracle, atol=TOL)
-
-
-def test_resample_band_pallas_falls_back(rng):
-    """Geometry the Pallas band can't serve (num < one output group)
-    silently takes the XLA band under method='band', and raises only
-    when explicitly required."""
-    x = rand_real(rng, 4096)
-    taps = rand_real(rng, 31)
-    got, _ = fir.fir_resample(taps, 3, 10, x, 0, 64, method="band")
-    want, _ = fir.fir_resample(taps, 3, 10, x, 0, 64, method="direct")
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=TOL)
-    with pytest.raises(ValueError):
-        fir.fir_resample(taps, 3, 10, x, 0, 64, method="band_pallas")
 
 
 def test_resample_band_complex(rng):
@@ -204,19 +188,20 @@ def test_resample_band_complex(rng):
     num = fir.resample_output_count(size, ntaps, interp, decim, 0) - 4
     want, _ = resample_oracle(taps, interp, decim, x.astype(np.complex128),
                               0, num)
-    got, _ = fir.fir_resample(taps, interp, decim, x, 0, num, method="band")
+    got, _ = fir.fir_resample(taps, interp, decim, x, 0, num,
+                              method="band_xla")
     assert np.abs(np.asarray(got) - want).max() < TOL
 
 
 def test_resample_band_streaming(rng):
-    """The streaming Fir resampler with method='band' streams chunked ==
+    """The streaming Fir resampler with method='band_xla' streams chunked ==
     whole (the seam-split start offsets exercise the band's origin
     folding) and agrees with the conv path on the same stream."""
     import jax.numpy as jnp
     from sdr_tpu.stream import Fir
     taps = rand_real(rng, 31)
     x = rand_real(rng, 12600)
-    op = Fir.resampler(taps, 3, 10, method="band")
+    op = Fir.resampler(taps, 3, 10, method="band_xla")
     whole_c = op.apply(op.init_carry(12600, jnp.float32), jnp.asarray(x))[1]
     parts, c = [], op.init_carry(840, jnp.float32)
     for i in range(0, 12600, 840):

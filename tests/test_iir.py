@@ -60,7 +60,7 @@ def test_deemphasis_rolls_off(rng):
     lo = np.abs(h[(w > 50) & (w < 200)]).mean()
     hi = np.abs(h[(w > 10000) & (w < 15000)]).mean()
     assert lo / hi > 4  # strong HF attenuation
-    # and the TPU path filters a signal finitely
+    # and the scan path filters a signal finitely
     y = np.asarray(iir.biquad(b, a, rng.normal(size=1000).astype(np.float32)))
     assert np.isfinite(y).all()
 

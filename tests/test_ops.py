@@ -32,7 +32,7 @@ def test_iq_i16(rng):
 
 def test_iq_planar_variants(rng):
     """Planar converters == complex converters, componentwise (the planar
-    [2, n] layout is the TPU-native stream representation)."""
+    [2, n] layout is the planar stream representation)."""
     raw8 = rng.integers(0, 256, 4096).astype(np.uint8)
     c = np.asarray(ops.iq_u8_to_cfloat(raw8))
     p = np.asarray(ops.iq_u8_to_planar(raw8))
@@ -258,65 +258,17 @@ def test_fft_matches_numpy(rng):
 
 
 def test_fft_accepts_sequence_and_bounds_auto(rng):
-    """Regression (ADVICE r2): 'auto' must not crash on plain sequences
-    (np.shape, not .shape), and must keep large factorable lengths on the
-    exact custom call instead of the matmul DFT."""
+    """Regression: fft must not crash on plain sequences (np.shape, not
+    .shape), and must stay accurate at a large length (2^20)."""
     seq = [1.0, 2.0, 3.0, 4.0]
     np.testing.assert_allclose(np.asarray(ops.fft(seq)), np.fft.fft(seq),
                                rtol=1e-5, atol=1e-5)
-    # 2^20 factors as 1024*1024 (both <= 2048) but is far outside the
-    # measured-win regime — auto must stay exact (mxu at f32 on n=1M
-    # would be off by >> this tolerance, and 100x the FLOPs).
     n = 1 << 20
     x = (rng.normal(size=n) + 1j * rng.normal(size=n)).astype(np.complex64)
     ref = np.fft.fft(x)
-    got = np.asarray(ops.fft(x, method="auto"))
+    got = np.asarray(ops.fft(x))
     scale = np.abs(ref).max()
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * scale)
-
-
-@pytest.mark.parametrize("n", [64, 256, 1024, 4000, 4096])
-def test_fft_mxu_matches_numpy(rng, n):
-    """The four-step matmul DFT must agree with the FFT it replaces, for
-    square, rectangular, and non-power-of-two factorizations."""
-    x = (rng.normal(size=(3, n))
-         + 1j * rng.normal(size=(3, n))).astype(np.complex64)
-    ref = np.fft.fft(x)
-    got = np.asarray(ops.fft_mxu(x))
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-4 * scale)
-
-
-def test_fft_mxu_planar_axis_and_real(rng):
-    # planar form == complex form
-    x = (rng.normal(size=(2, 1024))
-         + 1j * rng.normal(size=(2, 1024))).astype(np.complex64)
-    yr, yi = ops.fft_mxu_planar(x.real.astype(np.float32),
-                                x.imag.astype(np.float32))
-    ref = np.fft.fft(x)
-    scale = np.abs(ref).max()
-    np.testing.assert_allclose(np.asarray(yr) + 1j * np.asarray(yi), ref,
-                               rtol=0, atol=1e-4 * scale)
-    # non-default axis
-    xa = x.T.copy()
-    np.testing.assert_allclose(np.asarray(ops.fft_mxu(xa, axis=0)),
-                               np.fft.fft(xa, axis=0),
-                               rtol=0, atol=1e-4 * scale)
-    # real input promotes like np.fft.fft
-    r = rng.normal(size=256).astype(np.float32)
-    np.testing.assert_allclose(np.asarray(ops.fft_mxu(r)), np.fft.fft(r),
-                               rtol=0, atol=1e-4 * np.abs(np.fft.fft(r)).max())
-
-
-def test_fft_mxu_rejects_unfactorable():
-    with pytest.raises(ValueError):
-        ops.fft_mxu(np.zeros(61, np.complex64))  # prime
-    with pytest.raises(ValueError):
-        ops.fft_mxu(np.zeros(32, np.complex64))  # too small
-    # fft(method='auto') falls back to the custom call for those sizes
-    x = np.ones(61, np.complex64)
-    np.testing.assert_allclose(np.asarray(ops.fft(x)), np.fft.fft(x),
-                               rtol=1e-4, atol=1e-3)
 
 
 def test_rfft_matches_numpy(rng):
@@ -362,3 +314,26 @@ def test_fm_mod_streaming_phase_carry(rng):
         parts.append(np.asarray(y))
     got = np.concatenate(parts)
     np.testing.assert_allclose(got, np.asarray(whole), atol=1e-3)
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("n", [64, 256, 1024, 4000, 4096])
+def test_fft_stream_matches_numpy(rng, n, planar):
+    """FftStream (the waterfall stage) against numpy.fft at power-of-two
+    and other lengths, planar and complex input: frames every hop samples
+    behind size - hop zeros, windowed, shifted, magnitude."""
+    from sdr_tpu.stream import FftStream
+    hop = n // 2
+    x = (rng.normal(size=4 * n) + 1j * rng.normal(size=4 * n)
+         ).astype(np.complex64)
+    win = ops.blackman(n)
+    op = FftStream(n, hop, window=win, planar=planar)
+    xin = np.stack([x.real, x.imag]) if planar else x
+    carry = op.init_carry(4 * n, jnp.float32 if planar else jnp.complex64,
+                          (2,) if planar else ())
+    _, got = op.apply(carry, jnp.asarray(xin))
+    X = np.concatenate([np.zeros(n - hop, np.complex128), x])
+    idx = np.arange(4 * n // hop)[:, None] * hop + np.arange(n)[None, :]
+    want = np.abs(np.fft.fftshift(np.fft.fft(X[idx] * win), axes=-1))
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0,
+                               atol=1e-5 * want.max())

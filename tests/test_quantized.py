@@ -1,4 +1,5 @@
-"""Int8-MXU fused front end (ops/quantized.py, stream.U8FrontEnd).
+"""Integer-matmul fused front end (ops/quantized.py, stream.U8FrontEnd)
+and the fused front+demod (stream.U8FrontDemod).
 
 Differential-tested against the exact f32 path (convert -> decimate), the
 same strategy the reference applies across its kernel variants
@@ -35,7 +36,7 @@ def test_u8_front_matches_f32(rng, K, f, n):
 
 @pytest.mark.parametrize("K,f,n", [(51, 8, 1 << 14), (33, 4, 5000)])
 def test_u8_front_s8_precision(rng, K, f, n):
-    """Single-band 8-bit-tap mode: half the MXU work.  Per-output error
+    """Single-band 8-bit-tap mode: half the matmul work.  Per-output error
     is bounded by the tap-quantization step: |err| <= K * max|tap| / 254
     (each tap off by at most half an LSB, |x| < 1).  For normalized
     real-filter taps (max|tap| ~ 0.2) that is ~2e-3 — inside the
@@ -129,20 +130,22 @@ def test_quantized_fm_chain_parity():
 
 
 def test_fused_front_demod_stream_matches_pair(rng):
-    """Blockwise U8FrontDemod (one fused kernel) == U8FrontEnd ->
-    FmDemod(planar, poly) across block seams, in both the kernel path
-    (impl='pallas', interpret on CPU) and the XLA fallback."""
+    """Blockwise U8FrontDemod == the exact f32 stages IqConvertU8(planar)
+    -> Fir.decimator -> FmDemod(planar, poly) across block seams, in both
+    the kernel path (interpret mode) and the plain XLA path the op takes
+    on the CPU."""
     from sdr_tpu.stream import U8FrontDemod, FmDemod
     from sdr_tpu.apps.chains import fm_taps
     block, B = 16384, 5
     raw = rng.integers(0, 256, B * block).astype(np.uint8)
     rf = fm_taps()[0]
-    pp = Pipeline([U8FrontEnd(rf, 8), FmDemod(planar=True, atan2="poly")],
+    pp = Pipeline([IqConvertU8(planar=True), Fir.decimator(rf, 8),
+                   FmDemod(planar=True, atan2="poly")],
                   block_in=block, in_dtype=jnp.uint8)
     _, want = pp.process(raw)
-    for impl in ("pallas", "xla"):
-        pf = Pipeline([U8FrontDemod(rf, 8, impl=impl)], block_in=block,
-                      in_dtype=jnp.uint8)
+    for interpret in (True, False):
+        pf = Pipeline([U8FrontDemod(rf, 8, interpret=interpret)],
+                      block_in=block, in_dtype=jnp.uint8)
         _, got = pf.process(raw)
         np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                    atol=1e-5)
@@ -151,15 +154,15 @@ def test_fused_front_demod_stream_matches_pair(rng):
 def test_fused_front_demod_time_batched(rng):
     """Block-parallel (vmap + halo ppermute) U8FrontDemod == its
     sequential streamed run (exercises the 2K-byte shard_carry halo and
-    the derived last-sample seed)."""
+    the derived last-sample seed), kernel and XLA paths."""
     from sdr_tpu.stream import U8FrontDemod
     from sdr_tpu.apps.chains import fm_taps
     from sdr_tpu import parallel
     block, B = 16384, 4
     raw = rng.integers(0, 256, B * block).astype(np.uint8)
     rf = fm_taps()[0]
-    for impl in ("pallas", "xla"):
-        ops = [U8FrontDemod(rf, 8, impl=impl)]
+    for interpret in (True, False):
+        ops = [U8FrontDemod(rf, 8, interpret=interpret)]
         p = Pipeline(ops, block_in=block, in_dtype=jnp.uint8)
         _, seq = p.process(raw)
         par = np.asarray(parallel.run_time_batched(ops, jnp.asarray(raw),
@@ -190,7 +193,7 @@ def test_segmented_batched_continuation(rng):
 
     block, B, G = 163840, 4, 3
     raw = rng.integers(0, 256, G * B * block).astype(np.uint8)
-    for front in ("exact", "quantized"):
+    for front in ("exact", "quantized", "fused"):
         ops = fm_chain(method="conv", front=front)
         p = Pipeline(ops, block_in=block, in_dtype=jnp.uint8)
         _, seq = p.process(raw)
@@ -217,7 +220,7 @@ def test_short_taps_edge(rng):
         taps = rng.uniform(-1, 1, K).astype(np.float32)
         raw = jnp.asarray(rng.integers(0, 256, 4096).astype(np.uint8))
         num = (4096 // 2 - K) // f + 1
-        got = fir_decimate_u8_planar(taps, f, raw, num, impl="xla")
+        got = fir_decimate_u8_planar(taps, f, raw, num)
         x = convert.iq_u8_to_cfloat(raw)
         want = fir.fir_decimate(taps, f, x, num, method="direct")
         want = jnp.stack([want.real, want.imag], axis=-2)
@@ -226,7 +229,7 @@ def test_short_taps_edge(rng):
 
 def test_q_out_geometry_invariance(rng):
     """Any band geometry q_out must yield bit-identical samples (it only
-    moves the MXU-work / lane-fill tradeoff), including combined with a
+    moves the matmul-work tradeoff), including combined with a
     byte_off streaming seam."""
     import jax.numpy as jnp
     from sdr_tpu.ops.quantized import fir_decimate_u8_planar
@@ -290,9 +293,38 @@ def test_chain_level_front_precision_accuracy():
                                  front_precision="s16")),
                     ("s8", dict(front="quantized",
                                 front_precision="s8"))):
-        p = Pipeline(fm_chain(method="conv", fuse_back=False, **kw),
+        p = Pipeline(fm_chain(method="conv", **kw),
                      block_in=n, in_dtype=jnp.uint8)
         _, y = p.process(jnp.asarray(raw))
         outs[tag] = np.asarray(y)
     assert np.abs(outs["s16"] - outs["exact"]).max() < 1e-5
     assert np.abs(outs["s8"] - outs["exact"]).max() < 1e-4
+
+
+def _u8_front_oracle(taps, factor, raw, num):
+    """Float reference: convert (convert.c:15-20) then decimate
+    (decimate.c:73-82), per plane."""
+    x = (raw.astype(np.float64) - 128.0) / 128.0
+    i, q = x[0::2], x[1::2]
+    out = np.empty((2, num))
+    for c, comp in enumerate((i, q)):
+        for m in range(num):
+            out[c, m] = np.dot(taps, comp[m * factor: m * factor + len(taps)])
+    return out
+
+
+@pytest.mark.parametrize("precision", ["s8", "s16"])
+@pytest.mark.parametrize("factor,ntaps", [(8, 51), (4, 33), (2, 17), (8, 72)])
+def test_u8_front_oracle_geometries(rng, factor, ntaps, precision):
+    """The XLA integer front against the float oracle at the tap/factor
+    geometries of the FM front and its neighbours, within the tap
+    quantization bound (half an LSB per tap, |x| < 1, both planes)."""
+    raw = rng.integers(0, 256, 20000).astype(np.uint8)
+    taps = rng.uniform(-1, 1, ntaps).astype(np.float32)
+    num = (raw.shape[0] // 2 - ntaps) // factor + 1
+    got = np.asarray(fir_decimate_u8_planar(taps, factor, jnp.asarray(raw),
+                                            num, precision=precision))
+    lsb = 254.0 if precision == "s8" else 65024.0
+    bound = ntaps * float(np.abs(taps).max()) / lsb
+    np.testing.assert_allclose(got, _u8_front_oracle(taps, factor, raw, num),
+                               atol=bound)

@@ -13,7 +13,7 @@ SECTIONS = [
     ("sdr_tpu.io", "Host I/O sources and sinks"),
     ("sdr_tpu.apps.chains", "Canonical receive chains (BASELINE configs)"),
     ("sdr_tpu.utils", "Device dispatch, profiling, roofline, args"),
-    ("sdr_tpu.kernels", "Pallas TPU kernels (the L0 layer)"),
+    ("sdr_tpu.kernels", "Pallas GPU kernels, Triton route (the L0 layer)"),
 ]
 
 
