@@ -16,8 +16,11 @@ phase fails.  The last line of standard output is one JSON object:
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -42,7 +45,7 @@ AM_BLOCK = 1_048_576               # apps.am --block default
 AM_BLOCKS = 8
 WF_BLOCK = 1_048_576               # apps.waterfall --block default
 CHAN_SECONDS = 0.5                 # apps.channelizer --seconds default
-WIDE_SAMPLES = 64_000              # per channel, wideband channelizer
+WIDE_SECONDS = 0.05                # --wideband: 64 x 64,000 = 4.1 M samples
 
 
 def log(msg):
@@ -76,6 +79,84 @@ def read_wav(path):
     with wave.open(path) as wf:
         pcm = np.frombuffer(wf.readframes(wf.getnframes()), "<i2")
         return pcm.astype(np.float64) / 32767.0, wf.getframerate()
+
+
+def run_app(main, argv):
+    """An app's ``main(argv)`` in this process; returns what it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        log(f"  | {line}")
+    if rc:
+        raise AssertionError(f"{main.__module__} exited {rc}")
+    return out
+
+
+_HLO_DEF = re.compile(r"\s*(?:ROOT )?%([\w.\-]+) = ")
+
+
+def _balanced(text, i):
+    """Index past the bracket group that opens at ``text[i]``."""
+    depth = 0
+    for j in range(i, len(text)):
+        depth += text[j] in "([{"
+        depth -= text[j] in ")]}"
+        if depth == 0:
+            return j + 1
+    return len(text)
+
+
+def gemm_lowering(fn, *args):
+    """What the compiled program's integer (s32-result) dots became: a
+    one-line verdict and their cuBLAS custom calls, Triton GEMM fusions
+    and dots left to XLA's own code generator, each as
+    ``op(operand types) -> result``."""
+    shape, ops = {}, []
+    for line in fn.lower(*args).compile().as_text().splitlines():
+        m = _HLO_DEF.match(line)
+        if not m:
+            continue
+        rest = line[m.end():]
+        cut = _balanced(rest, 0) if rest.startswith("(") else rest.find(" ")
+        shape[m.group(1)] = re.sub(r"\{[^}]*\}", "", rest[:cut])
+        op = rest[cut:].lstrip()
+        name = op[: op.find("(")]
+        args_ = op[op.find("("): _balanced(op, op.find("("))]
+        if "__cublas" in line:
+            kind = re.search(r'custom_call_target="([^"]+)"', line).group(1)
+        elif "__triton_gemm" in line:
+            kind = "triton_gemm fusion"
+        elif name == "dot":
+            kind = "dot"
+        else:
+            continue
+        ops.append((kind, re.findall(r"%([\w.\-]+)", args_), m.group(1)))
+    lines, operand_types = [], []
+    for kind, operands, out in ops:
+        if not shape[out].lstrip("(").startswith("s32"):
+            continue
+        types = [shape.get(o, "?") for o in operands]
+        operand_types.append((kind, [t.split("[")[0] for t in types]))
+        lines.append(f"{kind}({', '.join(types)}) -> {shape[out]}")
+    cublas = [t for k, t in operand_types if k.startswith("__cublas")]
+    if any(t[:2] == ["s8", "s8"] for t in cublas):
+        verdict = "int8 GEMM in cuBLAS"
+    elif cublas:
+        verdict = f"cuBLAS GEMM on {cublas[0][:2]} operands, not int8"
+    elif any(k == "triton_gemm fusion" for k, _ in operand_types):
+        verdict = "Triton GEMM fusion"
+    else:
+        verdict = "no GEMM library call: XLA's own loop code"
+    return verdict, list(dict.fromkeys(lines))
+
+
+def log_gemm_lowering(name, fn, *args):
+    verdict, lines = gemm_lowering(fn, *args)
+    log(f"  {name} compiles to: {verdict}")
+    for line in lines[:12]:
+        log(f"    {line}")
 
 
 def timed(fn, *args, reps=5):
@@ -192,6 +273,15 @@ def phase_fm_offline():
     cq = jax.jit(lambda r: run_time_batched(chain_q, r, nb))
     check("fm offline, quantized front, vs float64 reference",
           float(np.abs(np.asarray(cq(x)) - want).max()), BOUND)
+    # what the card runs for the quantized front's u8 x s8 -> s32 dot, and
+    # for a plain s8 x s8 -> s32 dot of the same width
+    log_gemm_lowering("quantized chain (u8 x s8 -> s32 dot)", cq, x)
+    a8 = jnp.ones((1 << 16, 1024), jnp.int8)
+    b8 = jnp.ones((1024, 256), jnp.int8)
+    log_gemm_lowering("s8 x s8 -> s32 dot [65536, 1024] x [1024, 256]",
+                      jax.jit(lambda a, b: jax.lax.dot_general(
+                          a, b, (((1,), (0,)), ((), ())),
+                          preferred_element_type=jnp.int32)), a8, b8)
     mem = ck.lower(x).compile().memory_analysis()
     log(f"  memory_analysis (fused chain, {nb} x {block} B): {mem}")
     for name, fn in (("fused kernel", fk), ("plain XLA", fx)):
@@ -283,10 +373,21 @@ def phase_channelizer(tmp):
 # --multi: the sharded paths on four cards against one card
 # --------------------------------------------------------------------------
 
-def phase_multi():
-    """Channel-sharded channelizer, time-sharded wideband channelizer and
-    time-sharded FM chain over a 1-D mesh of 4 cards, each against the
-    same input on one card; tolerances as tests/test_parallel.py."""
+def check_wavs(name, prefix, want, tol):
+    """Every channel's WAV (16-bit, so within 1.6e-5 of its samples)
+    against ``want [channels, n]``."""
+    got = np.stack([read_wav(f"{prefix}{c:03d}.wav")[0]
+                    for c in range(want.shape[0])])
+    if got.shape != want.shape:
+        raise AssertionError(f"{name}: {got.shape} != {want.shape}")
+    check(name, float(np.abs(got - want).max()), tol)
+
+
+def phase_multi(tmp):
+    """apps.channelizer, channel-sharded and (--wideband) time-sharded
+    over every visible card, and the FM chain time-sharded over a 1-D mesh
+    of 4 cards, each against the same input on one card; tolerances as
+    tests/test_parallel.py."""
     import jax
     import jax.numpy as jnp
     from sdr_tpu import parallel
@@ -297,33 +398,34 @@ def phase_multi():
     if n_dev != 4:
         raise AssertionError(f"--multi needs 4 GPUs, found {n_dev}")
 
+    prefix = os.path.join(tmp, "chan")
+    out = run_app(channelizer.main, [
+        "--channels", "64", "--synthetic", "--seconds", str(CHAN_SECONDS),
+        "--out-prefix", prefix])
+    if "on 4 devices" not in out:
+        raise AssertionError("apps.channelizer did not shard over 4 cards")
     n = int(FS * CHAN_SECONDS) // 80 * 80
     x = jax.device_put(channelizer.synthesize(64, n, FS))
-    chain = channelizer_chain(64)
-    got = parallel.run_channel_sharded(chain, parallel.make_mesh((4,), ("c",)),
-                                       x)
     one = parallel.run_channel_sharded(
-        chain, parallel.make_mesh((1,), ("c",), jax.devices()[:1]), x)
-    log(f"  channel-sharded channelizer: {got.shape} over 4 cards")
-    check("channelizer 4 cards vs 1 card",
-          float(np.abs(np.asarray(got) - np.asarray(one)).max()), 1e-4)
+        channelizer_chain(64),
+        parallel.make_mesh((1,), ("c",), jax.devices()[:1]), x)
+    check_wavs("apps.channelizer on 4 cards vs 1 card", prefix,
+               np.asarray(one), 1e-4)
 
-    # channels stacked on one wideband carrier grid (as apps.channelizer
-    # --wideband builds it), built on the card
-    C, n_ch = 64, WIDE_SAMPLES
-    k = jnp.arange(C * n_ch, dtype=jnp.int32)
-    tones = jnp.asarray(channelizer.synthesize(C, n_ch, FS))
-    up = jnp.zeros((C, C * n_ch), jnp.complex64).at[:, ::C].set(tones)
-    cyc = jnp.mod(jnp.arange(C, dtype=jnp.int32)[:, None] * k[None, :], C)
-    rot = jnp.exp(2j * jnp.pi * cyc / C).astype(jnp.complex64)
-    wide = jnp.sum(up * rot, axis=0)
-    wchain = channelizer_chain(C, wideband=True)
-    got = parallel.run_time_sharded(wchain, parallel.time_mesh(4), wide)
-    _, seq = Pipeline(wchain, block_in=wide.shape[-1] // 4,
-                      in_dtype=jnp.complex64).process(wide)
-    log(f"  time-sharded wideband channelizer: {got.shape} over 4 cards")
-    check("wideband channelizer 4 cards vs sequential",
-          float(np.abs(np.asarray(got) - np.asarray(seq)).max()), 1e-3)
+    prefix = os.path.join(tmp, "wide")
+    out = run_app(channelizer.main, [
+        "--channels", "64", "--synthetic", "--wideband",
+        "--seconds", str(WIDE_SECONDS), "--out-prefix", prefix])
+    if "on 4 devices" not in out:
+        raise AssertionError("apps.channelizer --wideband did not shard "
+                             "over 4 cards")
+    n = int(FS * WIDE_SECONDS) // 80 * 80
+    wide = channelizer.stack_wideband(channelizer.synthesize(64, n, FS))
+    _, seq = Pipeline(channelizer_chain(64, wideband=True),
+                      block_in=wide.shape[-1] // 4,
+                      in_dtype=jnp.complex64).process(jax.device_put(wide))
+    check_wavs("apps.channelizer --wideband on 4 cards vs sequential on "
+               "1 card", prefix, np.asarray(seq), 1e-3)
 
     block = OFFLINE_BLOCK
     raw = jax.device_put(fm_capture(4 * block // 2))
@@ -366,7 +468,7 @@ def main(argv=None):
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     if args.multi:
-        phases = [("multi", phase_multi)]
+        phases = [("multi", lambda: phase_multi(tmp))]
     else:
         phases = [("fm app", lambda: phase_fm_app(tmp)),
                   ("fm offline", phase_fm_offline),

@@ -36,6 +36,19 @@ def synthesize(n_channels: int, n: int, fs: float, seed: int = 0):
     return out
 
 
+def stack_wideband(x):
+    """Stack ``[C, n]`` channel rows onto one wideband stream of ``C*n``
+    samples, channel ``c`` rotated by ``c/C`` cycles per sample."""
+    C, n = x.shape
+    k = np.arange(C * n)
+    wide = np.zeros(C * n, dtype=np.complex64)
+    for c in range(C):
+        up = np.zeros(C * n, dtype=np.complex64)
+        up[::C] = x[c]  # naive upsample; filterbank rejects images
+        wide += up * np.exp(2j * np.pi * (c / C) * k).astype(np.complex64)
+    return wide
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--in", dest="inp", help="raw c64 file: [channels, N] "
@@ -57,16 +70,7 @@ def main(argv=None):
     if args.synthetic or not args.inp:
         x = synthesize(args.channels, n, args.rate)
         if args.wideband:
-            # stack the channels onto one wideband carrier grid
-            C = args.channels
-            k = np.arange(C * n)
-            wide = np.zeros(C * n, dtype=np.complex64)
-            for c in range(C):
-                up = np.zeros(C * n, dtype=np.complex64)
-                up[::C] = x[c]  # naive upsample; filterbank rejects images
-                wide += up * np.exp(2j * np.pi * (c / C) * k).astype(
-                    np.complex64)
-            x = wide
+            x = stack_wideband(x)
     else:
         x = np.fromfile(args.inp, dtype=np.complex64)
         if not args.wideband:

@@ -159,9 +159,7 @@ def _call(raw, last_iq, *, taps_key, factor, num, byte_off, interpret,
 
 
 def u8_front_demod(taps, factor: int, raw, last_iq=None, num: int = None,
-                   *, byte_off: int = 0, interpret: bool = False,
-                   phases: int = PHASES, rows: int = ROWS,
-                   num_warps: int = NUM_WARPS):
+                   *, byte_off: int = 0, interpret: bool = False):
     """Fused u8-IQ convert + decimate + FM demod.
 
     ``raw [..., 2n] u8`` interleaved IQ, ``last_iq [..., 2] f32`` (the
@@ -182,9 +180,9 @@ def u8_front_demod(taps, factor: int, raw, last_iq=None, num: int = None,
     if f % 2:
         raise ValueError(f"factor {f} must be even (two IQ samples per "
                          "32-bit word)")
-    if rows & (rows - 1) or phases & (phases - 1):
-        raise ValueError("rows and phases must be powers of two")
+    if PHASES & (PHASES - 1) or ROWS & (ROWS - 1):
+        raise ValueError("PHASES and ROWS must be powers of two")
     return _call(raw, last_iq, taps_key=taps.tobytes(), factor=f,
                  num=int(num), byte_off=int(byte_off),
-                 interpret=bool(interpret), phases=int(phases),
-                 rows=int(rows), num_warps=int(num_warps))
+                 interpret=bool(interpret), phases=PHASES, rows=ROWS,
+                 num_warps=NUM_WARPS)

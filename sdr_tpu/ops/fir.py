@@ -35,8 +35,8 @@ Execution paths: ``conv`` (XLA's conv_general_dilated, cuDNN on the GPU,
 which also fuses with neighboring elementwise ops), ``direct`` (a
 gather-einsum for tiny blocks and the CPU), and for rational resamplers
 ``band_xla`` (a banded matmul over a free reshape of the input).
-``method='auto'`` dispatches from the table measured per device family
-(utils/tuning.py).  Strided (decimating) reads use a polyphase input split.
+``method='auto'`` dispatches per device family (utils/tuning.py: conv on
+the GPU, a measured rate table on the CPU).  Strided (decimating) reads use a polyphase input split.
 Complex samples with real taps (the RC kernel variants, filter.c:74) are
 viewed as a [2, N] real batch on the filter/decimate paths, and as the
 INTERLEAVED float32 view of the complex64 buffer on the resampler conv

@@ -1,16 +1,19 @@
-"""Measured kernel-dispatch table: pick the FIR execution path from
-recorded rates, not hardcoded thresholds.
+"""FIR execution-path dispatch per device family.
 
 The reference's dispatch layer (SDR/CPUID.hs:100-104 ``featureSelect``)
 selects among SIMD variants by a *capability* predicate; here every
 strategy is always available and the right choice depends on the device
-family and the problem shape, so selection is by *measured throughput*:
-``best_method`` log-interpolates each method's rate at the requested tap
-count and returns the argmax.  A family not in the table is an error.
+family and the problem shape.
 
-A deployment can override the table at runtime via
-``SDR_TPU_TUNING_JSON=<path>`` (same schema: ``{family: {fam: {method:
-{taps: rate}}}}``).
+- 'gpu': one fixed path, ``conv`` (cuDNN convolution).  It won every tap
+  family the chains use on an H100, by 1.6x or more over the next path
+  (rates in PERF.md, Findings, PR 1).
+- 'cpu': ``best_method`` log-interpolates each method's recorded rate at
+  the requested tap count and returns the argmax.  A deployment can
+  override the CPU table at runtime via ``SDR_TPU_TUNING_JSON=<path>``
+  (same schema: ``{"cpu": {fam: {method: {taps: rate}}}}``).
+
+Any other family is an error.
 """
 
 from __future__ import annotations
@@ -21,38 +24,17 @@ import os
 
 __all__ = ["best_method", "best_resample_method", "measured_rates"]
 
+# the one path per family that has no measured table
+FIXED = {"gpu": "conv"}
+
 # input samples/sec by {family: {fam: {method: {key: rate}}}}.
 # fam 'filter' = unit stride, keyed by tap count; 'decimate' = strided,
 # keyed by TAPS PER PHASE ceil(K/f); 'resample' = rational (I > 1),
 # keyed by ceil(K/I).
 #
-# gpu: NVIDIA H100 80GB HBM3 at a 400 W power limit, tools/kernel_ab.py,
-# f32 at HIGHEST precision, the chains' batched shapes: k51/d8 on
-# [32, 2, 5.2M] (7/phase), k64/d16 (the AM channel filter) on
-# [32, 2, 524k] (4/phase), the 3/10 k31 resampler on [32, 655k]
-# (11/phase), the 64-tap audio FIR on [32, 197k].  'direct' ran at 1/8
-# of the batch (its [num, K] window gather must fit).  conv wins every
-# family; the 64-channel channelizer's k51/d8 on [64, 2, 640k] read the
-# same order (conv 1.01e11, direct 6.28e10).
-#
 # cpu: rough orders from a test machine — the CPU is a correctness
 # backend, not a target.
 MEASURED = {
-    "gpu": {
-        "filter": {
-            "conv":   {64: 1.06e10},
-            "direct": {64: 5.76e9},
-        },
-        "decimate": {
-            "conv":   {4: 8.98e10, 7: 1.07e11},
-            "direct": {4: 3.28e10, 7: 6.35e10},
-        },
-        "resample": {
-            "conv":     {11: 8.54e10},
-            "band_xla": {11: 5.07e10},
-            "direct":   {11: 1.55e10},
-        },
-    },
     "cpu": {
         "filter": {
             "conv":   {32: 2.0e8, 512: 1.0e8},
@@ -67,9 +49,9 @@ MEASURED = {
 
 
 def measured_rates(device_family: str):
-    """The active rate table for ``device_family`` ('gpu' | 'cpu'):
-    the ``SDR_TPU_TUNING_JSON`` override if set, else ``MEASURED``.
-    Raises ``ValueError`` for a family with no table."""
+    """The active rate table for ``device_family`` ('cpu'): the
+    ``SDR_TPU_TUNING_JSON`` override if set, else ``MEASURED``.  Raises
+    ``ValueError`` for a family with no table."""
     path = os.environ.get("SDR_TPU_TUNING_JSON")
     if path:
         try:
@@ -106,16 +88,19 @@ def _rate_at(table: dict, n_taps: int) -> float:
 
 def best_method(device_family: str, n_taps: int, factor: int = 1,
                 num: int = 1 << 20) -> str:
-    """Highest measured-rate execution path for a strided FIR.
+    """Execution path for a strided FIR.
 
-    Small problems on the CPU skip to 'direct' (dispatch overhead
-    dominates and the im2col stays tiny); otherwise the argmax over the
-    measured table for the family.  Unit stride interpolates by tap count;
-    strided interpolates by taps per polyphase component ceil(K/f) —
-    the shape variable the measured winner actually follows.
+    The family's fixed path where it has one; small problems on the CPU
+    skip to 'direct' (dispatch overhead dominates and the im2col stays
+    tiny); otherwise the argmax over the measured table for the family.
+    Unit stride interpolates by tap count; strided interpolates by taps
+    per polyphase component ceil(K/f) — the shape variable the measured
+    winner actually follows.
     """
+    if device_family in FIXED:
+        return FIXED[device_family]
     table = measured_rates(device_family)
-    if device_family == "cpu" and num < 4096:
+    if num < 4096:
         return "direct"
     if factor == 1:
         fam, key = "filter", n_taps
@@ -136,11 +121,13 @@ def _argmax(table: dict, key: int) -> str:
 def best_resample_method(device_family: str, n_taps: int,
                          interpolation: int, decimation: int,
                          num: int = 1 << 20) -> str:
-    """Execution path for a rational (I > 1) resampler: argmax over the
-    measured 'resample' family, keyed by taps per phase ceil(K/I).
-    Small problems on the CPU take the gather path (dispatch overhead
-    dominates)."""
+    """Execution path for a rational (I > 1) resampler: the family's
+    fixed path where it has one, else the argmax over the measured
+    'resample' family, keyed by taps per phase ceil(K/I).  Small problems
+    on the CPU take the gather path (dispatch overhead dominates)."""
+    if device_family in FIXED:
+        return FIXED[device_family]
     table = measured_rates(device_family)
-    if device_family == "cpu" and num < 4096:
+    if num < 4096:
         return "direct"
     return _argmax(table.get("resample", {}), -(-n_taps // interpolation))

@@ -13,10 +13,17 @@ import pytest
 import jax.numpy as jnp
 
 from sdr_tpu.kernels import u8_front_demod
+from sdr_tpu.kernels import u8_front_demod_triton as triton_front
 from sdr_tpu.ops import convert, demod, fir
 
 TOL = 1e-5
-SMALL = dict(phases=2, rows=32)        # 64-output tiles keep tests quick
+SMALL = dict(PHASES=2, ROWS=32)        # 64-output tiles keep tests quick
+
+
+@pytest.fixture
+def small_tiles(monkeypatch):
+    for name, value in SMALL.items():
+        monkeypatch.setattr(triton_front, name, value)
 
 
 def _plain(taps, factor, raw, last_iq, num, byte_off=0):
@@ -36,36 +43,35 @@ def _case(rng, K, f, nbytes, lead=()):
 @pytest.mark.parametrize("K,f", [(51, 8), (33, 4), (17, 2), (72, 8)])
 @pytest.mark.parametrize("num_kind", ["below_tile", "tile_multiple",
                                       "off_tile"])
-def test_kernel_matches_plain_front(rng, K, f, num_kind):
-    tile = SMALL["phases"] * SMALL["rows"]
+def test_kernel_matches_plain_front(rng, small_tiles, K, f, num_kind):
+    tile = SMALL["PHASES"] * SMALL["ROWS"]
     num = {"below_tile": tile - 23, "tile_multiple": 3 * tile,
            "off_tile": 3 * tile + 5}[num_kind]
     taps, raw, liq = _case(rng, K, f, 2 * (num * f + K))
     got = np.asarray(u8_front_demod(taps, f, jnp.asarray(raw), liq, num,
-                                    interpret=True, **SMALL))
+                                    interpret=True))
     assert got.shape == (num,)
     np.testing.assert_allclose(got, _plain(taps, f, raw, liq, num),
                                atol=TOL)
 
 
 @pytest.mark.parametrize("byte_off", [2, 10, 86])
-def test_kernel_seam_offsets(rng, byte_off):
+def test_kernel_seam_offsets(rng, small_tiles, byte_off):
     """A streaming seam starts the windows ``byte_off`` bytes into the
     block (leading zero taps in the kernel)."""
     taps, raw, liq = _case(rng, 51, 8, 6000)
     num = (3000 - byte_off // 2 - 51) // 8 + 1
     got = np.asarray(u8_front_demod(taps, 8, jnp.asarray(raw), liq, num,
-                                    byte_off=byte_off, interpret=True,
-                                    **SMALL))
+                                    byte_off=byte_off, interpret=True))
     np.testing.assert_allclose(
         got, _plain(taps, 8, raw, liq, num, byte_off), atol=TOL)
 
 
 @pytest.mark.parametrize("lead", [(3,), (2, 2)])
-def test_kernel_batched_leading_dims(rng, lead):
+def test_kernel_batched_leading_dims(rng, small_tiles, lead):
     taps, raw, liq = _case(rng, 51, 8, 4096, lead)
     got = np.asarray(u8_front_demod(taps, 8, jnp.asarray(raw), liq,
-                                    interpret=True, **SMALL))
+                                    interpret=True))
     num = (2048 - 51) // 8 + 1
     assert got.shape == lead + (num,)
     np.testing.assert_allclose(got, _plain(taps, 8, raw, liq, num),
@@ -83,27 +89,27 @@ def test_kernel_default_tile_and_ragged_bytes(rng):
                                atol=TOL)
 
 
-def test_kernel_first_output_uses_last_iq(rng):
+def test_kernel_first_output_uses_last_iq(rng, small_tiles):
     """Only output 0 reads the carried sample; zeros give angle 0 there
     (the reference's initial phase)."""
     taps, raw, _ = _case(rng, 51, 8, 4096)
     y0 = np.asarray(u8_front_demod(taps, 8, jnp.asarray(raw),
                                    np.zeros(2, np.float32),
-                                   interpret=True, **SMALL))
+                                   interpret=True))
     y1 = np.asarray(u8_front_demod(taps, 8, jnp.asarray(raw),
                                    np.array([0.5, -0.5], np.float32),
-                                   interpret=True, **SMALL))
+                                   interpret=True))
     assert y0[0] == 0.0 and y1[0] != 0.0
     np.testing.assert_array_equal(y0[1:], y1[1:])
 
 
-def test_kernel_rejects_odd_factor_and_bad_tiles(rng):
+def test_kernel_rejects_odd_factor_and_bad_tiles(rng, monkeypatch):
     taps, raw, liq = _case(rng, 17, 5, 4096)
     with pytest.raises(ValueError, match="even"):
         u8_front_demod(taps, 5, jnp.asarray(raw), liq, interpret=True)
+    monkeypatch.setattr(triton_front, "PHASES", 3)
     with pytest.raises(ValueError, match="powers of two"):
-        u8_front_demod(taps, 8, jnp.asarray(raw), liq, interpret=True,
-                       phases=3)
+        u8_front_demod(taps, 8, jnp.asarray(raw), liq, interpret=True)
 
 
 @pytest.mark.gpu

@@ -72,9 +72,9 @@ def test_best_method_cpu():
 
 
 def test_tuning_table_dispatch(tmp_path, monkeypatch):
-    """best_method = argmax over the measured rate table: on the GPU conv
-    won every family measured on the card; small CPU problems take the
-    gather path; a family with no table is an error."""
+    """On the GPU one fixed path (conv won every family measured on the
+    card); on the CPU the argmax over the measured rate table, small
+    problems taking the gather path; any other family is an error."""
     from sdr_tpu.utils import tuning
     assert tuning.best_method("gpu", 64) == "conv"
     assert tuning.best_method("gpu", 51, factor=8) == "conv"
@@ -84,11 +84,13 @@ def test_tuning_table_dispatch(tmp_path, monkeypatch):
     assert tuning.best_resample_method("cpu", 31, 3, 10, num=100) == "direct"
     with pytest.raises(ValueError, match="no measured dispatch table"):
         tuning.best_method("metal", 32)
-    # runtime override via SDR_TPU_TUNING_JSON
+    assert tuning.best_method("cpu", 32) == "conv"
+    # runtime override of the CPU table via SDR_TPU_TUNING_JSON
     p = tmp_path / "t.json"
-    p.write_text('{"gpu": {"filter": {"direct": {"32": 9e99}}}}')
+    p.write_text('{"cpu": {"filter": {"direct": {"32": 9e99}}}}')
     monkeypatch.setenv("SDR_TPU_TUNING_JSON", str(p))
-    assert tuning.best_method("gpu", 32) == "direct"
+    assert tuning.best_method("cpu", 32) == "direct"
+    assert tuning.best_method("gpu", 32) == "conv"
 
 
 def test_timed_and_trace(capsys):

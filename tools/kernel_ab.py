@@ -54,7 +54,7 @@ def run_case(results, name, fn, args, n_in, unit="input samples"):
 
 
 def front_cases(results, batch, block_bytes):
-    from sdr_tpu.kernels.u8_front_demod_triton import u8_front_demod
+    from sdr_tpu.kernels import u8_front_demod_triton as kt
     from sdr_tpu.ops.quantized import fir_decimate_u8_planar
     rf = fm_taps()[0]
     key = jax.random.PRNGKey(0)
@@ -83,10 +83,12 @@ def front_cases(results, batch, block_bytes):
 
     with jax.default_matmul_precision("highest"):
         ref = jax.jit(exact("conv"))(xpad)
+    shipped = kt.PHASES, kt.ROWS, kt.NUM_WARPS
     for G, R, W in ((4, 256, 4), (8, 256, 4), (16, 128, 4), (8, 512, 8),
                     (8, 128, 4), (16, 256, 8)):
-        fn = (lambda r, G=G, R=R, W=W: u8_front_demod(
-            rf, 8, r, liq, num, phases=G, rows=R, num_warps=W))
+        # the tile geometry is read when the jitted case is first traced
+        kt.PHASES, kt.ROWS, kt.NUM_WARPS = G, R, W
+        fn = (lambda r: kt.u8_front_demod(rf, 8, r, liq, num))
         try:
             err = float(jnp.abs(jax.jit(fn)(xpad) - ref).max())
         except Exception as e:
@@ -95,6 +97,7 @@ def front_cases(results, batch, block_bytes):
                         "value": err})
         print(json.dumps(results[-1]), flush=True)
         run_case(results, f"front_kernel_G{G}_R{R}_w{W}", fn, (xpad,), n_in)
+    kt.PHASES, kt.ROWS, kt.NUM_WARPS = shipped
     run_case(results, "front_xla_exact_conv", exact("conv"), (xpad,), n_in)
     run_case(results, "front_xla_quantized_s8", quant("s8"), (xpad,), n_in)
     run_case(results, "front_xla_quantized_s16", quant("s16"), (xpad,), n_in)
